@@ -8,10 +8,13 @@ Phases, in order; any failed check exits non-zero:
 
 1. Device: the card's name and power limit, torch and CUDA versions, and
    the build of every CUDA kernel from src/repro_torch/kernels/csrc (one
-   nvcc per source, all started together).
+   nvcc per source, all started together), with each kernel's registers
+   and spills as ptxas reports them; an fphash kernel that spills fails.
 2. Kernels against their plain PyTorch versions on the card, bit for bit,
    and against the golden constants of src/repro_torch/kernels/golden.py
-   (fixed outputs of the JAX reference).
+   (fixed outputs of the JAX reference).  fphash_many also takes chunks at
+   every offset mod 16, chunks ending at the end of their buffer, batches
+   of one and an index level of 300,000 chunks of 1-200 B.
 3. The engine's main path at a real size: the paper's collaborative
    analytics dataset shape (5M records of 180 B on average: a 12 B key, two
    ints, variable text; ~0.9 GB, made from a numpy seed) put as one FBlob
@@ -31,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -151,16 +155,36 @@ def kernels_vs_plain(dev) -> dict[str, int]:
     print(f"fphash: {len(FP_LENGTHS)} lengths identical to plain, "
           f"{len(golden.FPHASH)} golden")
 
+    def many_pair(data, offsets, lengths, what):
+        offs = torch.as_tensor(offsets, dtype=torch.int64).to(dev)
+        lens = torch.as_tensor(lengths, dtype=torch.int64).to(dev)
+        k = fphash_many(data, offs, lens)
+        p = ref.fphash_many_ref(data, offs, lens)
+        check(torch.equal(k, p), f"fphash_many differs from plain on {what}")
+        err["fphash_many"] = max(err["fphash_many"], max_err(k, p))
+
+    def rand_bytes(n):
+        return torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).to(dev)
+
     lengths = rng.integers(1, 32769, 10_000).astype(np.int64)
-    offsets = np.concatenate([[0], np.cumsum(lengths[:-1])]).astype(np.int64)
-    data = torch.from_numpy(rng.integers(0, 256, int(lengths.sum()),
-                                         dtype=np.uint8)).to(dev)
-    offs, lens = torch.from_numpy(offsets).to(dev), torch.from_numpy(
-        lengths).to(dev)
-    k, p = fphash_many(data, offs, lens), ref.fphash_many_ref(data, offs, lens)
-    check(torch.equal(k, p), "fphash_many differs from plain on the ragged "
-                             "batch")
-    err["fphash_many"] = max(err["fphash_many"], max_err(k, p))
+    many_pair(rand_bytes(int(lengths.sum())), np.cumsum(lengths) - lengths,
+              lengths, "the ragged batch")
+    # every misalignment mod 16, in a view of a larger random buffer: a read
+    # past a chunk's end would change its digest; the chunk at offset 15
+    # ends at the view's last byte
+    for n in FP_LENGTHS + (3, 5, 32_800):
+        many_pair(rand_bytes(n + 15 + 64)[:n + 15], np.arange(16),
+                  np.full(16, n), f"length {n} at offsets 0..15")
+    # batches of one: a chunk ending at the last byte of its allocation,
+    # and an empty chunk at the very end
+    n = 3 * 4096 + 7
+    x = rand_bytes(n)
+    many_pair(x, [5], [n - 5], "a chunk ending at its allocation's end")
+    many_pair(x, [n], [0], "an empty chunk at the buffer's end")
+    # an index level: 300,000 chunks of 1..200 bytes end to end
+    small = rng.integers(1, 201, 300_000).astype(np.int64)
+    many_pair(rand_bytes(int(small.sum())), np.cumsum(small) - small, small,
+              "300,000 chunks of 1..200 B")
     ins = golden.fphash_inputs()
     gl = torch.tensor([len(b) for b in ins], dtype=torch.int64)
     go = torch.cumsum(gl, 0) - gl
@@ -169,8 +193,9 @@ def kernels_vs_plain(dev) -> dict[str, int]:
     check([r.astype("<i4").tobytes().hex() for r in got] == list(golden.FPHASH),
           "fphash_many misses its golden values")
     print(f"fphash_many: ragged batch of {len(lengths)} chunks "
-          f"({lengths.sum() / 2**20:.1f} MiB) identical to plain, "
-          f"{len(golden.FPHASH)} golden")
+          f"({lengths.sum() / 2**20:.1f} MiB), {len(FP_LENGTHS) + 3} lengths "
+          f"at offsets 0..15, 2 batches of one, 300,000 chunks of 1..200 B: "
+          f"identical to plain; {len(golden.FPHASH)} golden")
     return err
 
 
@@ -355,7 +380,7 @@ def time_kernels(mp: dict, dev) -> list[dict]:
     from repro_torch.core import chunk as ck
     from repro_torch.core import rolling
     from repro_torch.core.postree import POSTree
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels.chunker import boundary_bitmap
     from repro_torch.kernels.fphash import fphash, fphash_many
 
@@ -385,9 +410,21 @@ def time_kernels(mp: dict, dev) -> list[dict]:
     p = ref.fphash_many_ref(data, offs, lens)
     check(torch.equal(k, p), "fphash_many differs from plain on the leaves")
     b, by = bound_ms(data.numel() + 48 * len(lengths), fp_ops(lengths))
+    scratch = torch.empty_like(k)
+
+    def kernel_only():
+        # the wrapper's bounds check waits for the device on every call,
+        # which puts a host gap between launches; "wrapper_ms" keeps it
+        build.check(build.lib("fphash").fphash_many_cuda(
+            data.data_ptr(), offs.data_ptr(), lens.data_ptr(), len(lengths),
+            scratch.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            "fphash_many_cuda")
+
     out.append({"name": "fphash_many",
                 "shape": f"{len(lengths)} chunks, {data.numel()} B",
-                "ms": cuda_ms(lambda: fphash_many(data, offs, lens), 5),
+                "ms": cuda_ms(kernel_only, 20),
+                "wrapper_ms": cuda_ms(lambda: fphash_many(data, offs, lens),
+                                      5),
                 "plain_ms": cuda_ms(lambda: ref.fphash_many_ref(
                     data, offs, lens), 1),
                 "bound_ms": b, "bound_by": by, "max_abs_err": max_err(k, p)})
@@ -401,6 +438,35 @@ def time_kernels(mp: dict, dev) -> list[dict]:
                 "ms": cuda_ms(lambda: fphash(m), 100),
                 "plain_ms": cuda_ms(lambda: ref.fphash_ref(m), 10),
                 "bound_ms": b, "bound_by": by, "max_abs_err": max_err(k, p)})
+    return out
+
+
+# the kernel function of each wrapper, as ptxas names it in its -v report
+ENTRY_FUNCTIONS = {"chunker_kernel": "boundary_bitmap",
+                   "fphash_many_kernel": "fphash_many",
+                   "fphash_one_kernel": "fphash"}
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Registers per thread and spill bytes of each kernel in an nvcc
+    -Xptxas -v log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = next((v for k, v in ENTRY_FUNCTIONS.items()
+                         if k in m.group(1)), None)
+            if name:
+                out[name] = {"registers": None, "spill_bytes": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
     return out
 
 
@@ -435,10 +501,17 @@ def main() -> int:
     t = time.perf_counter()
     logs = build.build_all()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
+    ptx = {}
     for name, log in logs.items():
+        log = log or (build.BUILD_DIR / f"{name}.log").read_text()
         for line in log.splitlines():
-            if "registers" in line or "error" in line.lower():
+            if ("registers" in line or "spill" in line
+                    or "error" in line.lower()):
                 print(f"  {name}: {line.strip()}")
+        ptx.update(ptxas_report(log))
+    check(set(ptx) == set(SOURCES), f"no ptxas report for some kernels: {ptx}")
+    check(not any(ptx[k]["spill_bytes"] for k in ("fphash_many", "fphash")),
+          f"an fphash kernel spills to local memory: {ptx}")
 
     t = time.perf_counter()
     err = kernels_vs_plain(dev)
@@ -480,7 +553,9 @@ def main() -> int:
             "max_abs_err": max(err[row["name"]], row["max_abs_err"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None, "shape": row["shape"]})
+            "library_ms": None, "shape": row["shape"],
+            "registers": ptx[row["name"]]["registers"],
+            "wrapper_ms": row.get("wrapper_ms")})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..errors import ConfigError
-from . import build
-from .ref import fphash_many_ref, fphash_ref
+from . import build, ref
 
 
 def _device_of(*tensors: torch.Tensor) -> torch.device:
@@ -48,7 +47,7 @@ def fphash_many(data: torch.Tensor, offsets: torch.Tensor,
         if lo_len < 0 or lo_off < 0 or hi_end > data.numel():
             raise ConfigError("a chunk lies outside the data buffer")
     if dev.type == "cpu":
-        return fphash_many_ref(data, offsets, lengths)
+        return ref.fphash_many_ref(data, offsets, lengths)
     data, offsets, lengths = (data.contiguous(), offsets.contiguous(),
                               lengths.contiguous())
     out = torch.empty((n, 8), dtype=torch.int32, device=dev)
@@ -68,7 +67,7 @@ def fphash(data: torch.Tensor) -> torch.Tensor:
     _bytes_1d(data)
     dev = _device_of(data)
     if dev.type == "cpu":
-        return fphash_ref(data)
+        return ref.fphash_ref(data)
     data = data.contiguous()
     out = torch.empty(8, dtype=torch.int32, device=dev)
     fn = build.lib("fphash").fphash_one_cuda
