@@ -25,9 +25,10 @@ Phases, in order; any failed check exits non-zero:
    recomputed with the plain versions on the card.
 
 The line before the last is one JSON object with each kernel's launches on
-the main path, its time, its plain version's time and its bound; the last
-line is {"ok": true, "device": {...}}.  Needs no network.  Exits non-zero,
-printing no result, when no GPU is available.
+the main path, its time through its wrapper (ms), its kernel's device time
+alone (kernel_ms, from torch.profiler), its plain version's time and its
+bound; the last line is {"ok": true, "device": {...}}.  Needs no network.
+Exits non-zero, printing no result, when no GPU is available.
 """
 from __future__ import annotations
 
@@ -87,6 +88,27 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, name: str, reps: int) -> float:
+    """Mean device time of kernel ``name``'s CUDA function over reps calls
+    of fn(), as torch.profiler reads it: the kernel alone, without the
+    host work of its wrapper that ``cuda_ms`` also sees."""
+    from torch.profiler import ProfilerActivity, profile
+
+    entry = next(k for k, v in ENTRY_FUNCTIONS.items() if v == name)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.self_device_time_total for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and entry in e.key]
+    check(bool(us), f"torch.profiler saw no {entry} on the device")
+    return sum(us) / 1e3 / reps
 
 
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
@@ -380,7 +402,7 @@ def time_kernels(mp: dict, dev) -> list[dict]:
     from repro_torch.core import chunk as ck
     from repro_torch.core import rolling
     from repro_torch.core.postree import POSTree
-    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels.chunker import boundary_bitmap
     from repro_torch.kernels.fphash import fphash, fphash_many
 
@@ -393,6 +415,8 @@ def time_kernels(mp: dict, dev) -> list[dict]:
     b, by = bound_ms(2 * x.numel(), CHUNKER_OPS_PER_BYTE * x.numel())
     out.append({"name": "boundary_bitmap", "shape": f"uint8[{x.numel()}]",
                 "ms": cuda_ms(lambda: boundary_bitmap(x), 5),
+                "kernel_ms": kernel_ms(lambda: boundary_bitmap(x),
+                                       "boundary_bitmap", 5),
                 "plain_ms": cuda_ms(lambda: rolling.boundary_bitmap(
                     x, 48, 12), 1),
                 "bound_ms": b, "bound_by": by, "max_abs_err": max_err(k, p)})
@@ -410,21 +434,11 @@ def time_kernels(mp: dict, dev) -> list[dict]:
     p = ref.fphash_many_ref(data, offs, lens)
     check(torch.equal(k, p), "fphash_many differs from plain on the leaves")
     b, by = bound_ms(data.numel() + 48 * len(lengths), fp_ops(lengths))
-    scratch = torch.empty_like(k)
-
-    def kernel_only():
-        # the wrapper's bounds check waits for the device on every call,
-        # which puts a host gap between launches; "wrapper_ms" keeps it
-        build.check(build.lib("fphash").fphash_many_cuda(
-            data.data_ptr(), offs.data_ptr(), lens.data_ptr(), len(lengths),
-            scratch.data_ptr(), torch.cuda.current_stream().cuda_stream),
-            "fphash_many_cuda")
-
     out.append({"name": "fphash_many",
                 "shape": f"{len(lengths)} chunks, {data.numel()} B",
-                "ms": cuda_ms(kernel_only, 20),
-                "wrapper_ms": cuda_ms(lambda: fphash_many(data, offs, lens),
-                                      5),
+                "ms": cuda_ms(lambda: fphash_many(data, offs, lens), 5),
+                "kernel_ms": kernel_ms(lambda: fphash_many(data, offs, lens),
+                                       "fphash_many", 5),
                 "plain_ms": cuda_ms(lambda: ref.fphash_many_ref(
                     data, offs, lens), 1),
                 "bound_ms": b, "bound_by": by, "max_abs_err": max_err(k, p)})
@@ -436,6 +450,7 @@ def time_kernels(mp: dict, dev) -> list[dict]:
     b, by = bound_ms(m.numel() + 32, fp_ops(np.array([m.numel()])))
     out.append({"name": "fphash", "shape": f"meta chunk, {m.numel()} B",
                 "ms": cuda_ms(lambda: fphash(m), 100),
+                "kernel_ms": kernel_ms(lambda: fphash(m), "fphash", 100),
                 "plain_ms": cuda_ms(lambda: ref.fphash_ref(m), 10),
                 "bound_ms": b, "bound_by": by, "max_abs_err": max_err(k, p)})
     return out
@@ -503,7 +518,6 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
     ptx = {}
     for name, log in logs.items():
-        log = log or (build.BUILD_DIR / f"{name}.log").read_text()
         for line in log.splitlines():
             if ("registers" in line or "spill" in line
                     or "error" in line.lower()):
@@ -554,8 +568,8 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shape": row["shape"],
-            "registers": ptx[row["name"]]["registers"],
-            "wrapper_ms": row.get("wrapper_ms")})
+            "kernel_ms": row["kernel_ms"],
+            "registers": ptx[row["name"]]["registers"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -60,10 +60,16 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    """The nvcc log of the library ``library_path(name)``, kept beside it."""
+    return library_path(name).with_suffix(".log")
+
+
 def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
-    """Start nvcc for one source unless its library is already built."""
+    """Start nvcc for one source unless its library and log are already
+    built."""
     out = library_path(name)
-    if out.exists():
+    if out.exists() and log_path(name).exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -76,7 +82,7 @@ def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
 def _finish(name: str, job) -> str:
     out, tmp, proc = job
     log, _ = proc.communicate()
-    (BUILD_DIR / f"{name}.log").write_text(log)
+    log_path(name).write_text(log)
     if proc.returncode != 0:
         raise KernelError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)        # atomic: a concurrent build never sees half
@@ -85,10 +91,11 @@ def _finish(name: str, job) -> str:
 
 def build_all(names=SOURCES) -> dict[str, str]:
     """Compile every named source at once (one nvcc each, started
-    together) and return each build's compiler log ("" if it was built
-    already)."""
+    together) and return the compiler log of each library, read back from
+    its build when it was built already."""
     jobs = {name: _start(name) for name in names}
-    return {name: (_finish(name, job) if job is not None else "")
+    return {name: (_finish(name, job) if job is not None
+                   else log_path(name).read_text())
             for name, job in jobs.items()}
 
 
