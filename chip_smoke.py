@@ -9,10 +9,12 @@ Phases, in order; any failed check exits non-zero:
 1. Device: the card's name and power limit, torch and CUDA versions, and
    the build of every CUDA kernel from src/repro_torch/kernels/csrc (one
    nvcc per source, all started together), with each kernel's registers
-   and spills as ptxas reports them; an fphash kernel that spills fails.
+   and spills as ptxas reports them; a kernel that spills fails.
 2. Kernels against their plain PyTorch versions on the card, bit for bit,
    and against the golden constants of src/repro_torch/kernels/golden.py
-   (fixed outputs of the JAX reference).  fphash_many also takes chunks at
+   (fixed outputs of the JAX reference).  The bitmap also takes the edges
+   of its 8192-byte tile and views of a stream at every offset 1..15 from
+   its allocation's start; fphash_many takes chunks at
    every offset mod 16, chunks ending at the end of their buffer, batches
    of one and an index level of 300,000 chunks of 1-200 B.
 3. The engine's main path at a real size: the paper's collaborative
@@ -52,7 +54,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
-N_GRID = (1, 47, 48, 255, 4991, 4992, 4993, 39936, 100_001)
+N_GRID = (1, 47, 48, 255, 4991, 4992, 4993, 8191, 8192, 8193, 16_383,
+          16_384, 16_385, 39936, 100_001)
 WQ_GRID = ((48, 12), (16, 8), (128, 10), (4, 4))
 FP_LENGTHS = (0, 1, 31, 4095, 4096, 4097, 12288, 32768, 32769, 65536)
 STREAM_BYTES = 64 << 20
@@ -161,7 +164,14 @@ def kernels_vs_plain(dev) -> dict[str, int]:
     stream = torch.randint(0, 256, (STREAM_BYTES,), dtype=torch.uint8,
                            generator=torch.Generator().manual_seed(1))
     bitmap_pair(stream.to(dev), 48, 12)
+    # the stream's start at every misalignment mod 16: the kernel loads
+    # aligned granules and shifts the bytes into place
+    x = torch.from_numpy(rng.integers(0, 256, 100_001, dtype=np.uint8)).to(dev)
+    for off in range(1, 16):
+        for w, q in WQ_GRID:
+            bitmap_pair(x[off:], w, q)
     print(f"boundary_bitmap: {len(N_GRID) * len(WQ_GRID)} grid cases, "
+          f"{15 * len(WQ_GRID)} views at offsets 1..15, "
           f"{len(golden.BITMAP)} golden, 64 MiB stream: identical to plain")
 
     for n in FP_LENGTHS:
@@ -524,8 +534,8 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
         ptx.update(ptxas_report(log))
     check(set(ptx) == set(SOURCES), f"no ptxas report for some kernels: {ptx}")
-    check(not any(ptx[k]["spill_bytes"] for k in ("fphash_many", "fphash")),
-          f"an fphash kernel spills to local memory: {ptx}")
+    check(not any(v["spill_bytes"] for v in ptx.values()),
+          f"a kernel spills to local memory: {ptx}")
 
     t = time.perf_counter()
     err = kernels_vs_plain(dev)

@@ -15,7 +15,7 @@ from ..core import rolling
 from ..errors import ConfigError
 from . import build
 
-MAX_WINDOW = 128        # the kernel's shared-memory halo holds window-1 bytes
+MAX_WINDOW = 128        # the kernel stages the 128 bytes before each tile
 
 
 def _check(data: torch.Tensor, window: int, q: int) -> None:

@@ -11,8 +11,10 @@ Engine hooks (the counterparts of ``repro.kernels.ops``):
 
   * ``core.chunker`` calls ``boundary_bitmap`` by default;
     ``use_kernel_chunker(False)`` swaps in the plain version on the device;
-  * ``core.hashing.use_fphash()`` routes cids through ``content_hash`` /
-    ``content_hash_many`` (one ``fphash_many`` launch per batch).
+  * ``use_kernel_hash()`` (that is, ``core.hashing.use_fphash()``) routes
+    cids through ``content_hash`` / ``content_hash_many`` (one
+    ``fphash_many`` launch per batch); ``use_kernel_hash(False)`` restores
+    sha256.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 from ..errors import ConfigError
 from . import chunker as _kchunker
 from . import fphash as _kfphash
-from . import ref as _ref
+from .ref import boundary_bitmap_ref, fphash_ref
 
 _DEVICE = torch.device("cuda")
 
@@ -69,7 +71,7 @@ def boundary_bitmap(data, window: int = 48, q: int = 12) -> torch.Tensor:
 def plain_boundary_bitmap(data, window: int = 48, q: int = 12) -> torch.Tensor:
     """The same bitmap by the plain PyTorch version on the engine's
     device."""
-    return _ref.boundary_bitmap_ref(to_device(data), window, q)
+    return boundary_bitmap_ref(to_device(data), window, q)
 
 
 def use_kernel_chunker(enable: bool = True) -> None:
@@ -110,6 +112,17 @@ def content_hash_many(blobs) -> list[bytes]:
     return hash_many_with(_kfphash.fphash_many, [bytes(b) for b in blobs])
 
 
+def use_kernel_hash(enable: bool = True) -> None:
+    """Delegates to hashing.use_fphash/use_sha256, so the batched entry
+    point (one ``fphash_many`` launch per batch) switches together with the
+    singular one."""
+    from ..core import hashing
+    if enable:
+        hashing.use_fphash()
+    else:
+        hashing.use_sha256()
+
+
 def reset_launches() -> None:
     """Zero the launch counter of every kernel wrapper."""
     for fn in (_kchunker.boundary_bitmap, _kfphash.fphash_many,
@@ -122,3 +135,7 @@ def launches() -> dict[str, int]:
     return {"boundary_bitmap": _kchunker.boundary_bitmap.launches,
             "fphash_many": _kfphash.fphash_many.launches,
             "fphash": _kfphash.fphash.launches}
+
+
+__all__ = ["boundary_bitmap", "content_hash", "use_kernel_chunker",
+           "use_kernel_hash", "boundary_bitmap_ref", "fphash_ref"]

@@ -5,6 +5,8 @@ versions; the CUDA kernels are held to those on the card by chip_smoke.py.
 Every comparison is exact: bitmaps and digests must be identical bit for
 bit (tolerance zero).  Inputs come from numpy seeds.
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -157,6 +159,24 @@ def test_golden_values_of_reference_and_port():
         hits = torch.nonzero(boundary_bitmap(torch.from_numpy(blob.copy()),
                                              w, q)).flatten().numpy()
         assert golden.bitmap_digest(hits) == want
+
+
+def test_use_kernel_hash_switches_the_batched_hash():
+    """use_kernel_hash routes content_hash_many through fphash_many and
+    back to sha256, as the reference's use_pallas_hash does.  On the CPU
+    the wrapper runs its plain version and counts no launch."""
+    from repro_torch.core import hashing
+    blobs = [b"", b"abc", np.random.default_rng(8).bytes(5000)]
+    try:
+        ops.use_kernel_hash()
+        assert hashing.content_hash_many(blobs) == ref_fphash_many(blobs)
+        assert hashing.content_hash(blobs[1]) == ref_fphash(blobs[1])
+        ops.use_kernel_hash(False)
+        assert hashing.content_hash_many(blobs) == \
+            [hashlib.sha256(b).digest() for b in blobs]
+    finally:
+        hashing.use_sha256()
+    assert set(ops.__all__) <= set(dir(ops))
 
 
 def test_cuda_device_without_gpu_raises():
