@@ -94,9 +94,11 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def kernel_ms(fn, name: str, reps: int) -> float:
-    """Mean device time of kernel ``name``'s CUDA function over reps calls
-    of fn(), as torch.profiler reads it: the kernel alone, without the
-    host work of its wrapper that ``cuda_ms`` also sees."""
+    """Mean device time of one launch of kernel ``name``'s CUDA function
+    over reps calls of fn(), as torch.profiler reads it: the kernel alone,
+    without the host work of its wrapper that ``cuda_ms`` also sees.  The
+    mean is over the launches the profiler recorded, which can be fewer
+    than reps."""
     from torch.profiler import ProfilerActivity, profile
 
     entry = next(k for k, v in ENTRY_FUNCTIONS.items() if v == name)
@@ -107,11 +109,12 @@ def kernel_ms(fn, name: str, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = [e.self_device_time_total for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and entry in e.key]
-    check(bool(us), f"torch.profiler saw no {entry} on the device")
-    return sum(us) / 1e3 / reps
+    seen = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and entry in e.key]
+    launches = sum(e.count for e in seen)
+    check(launches > 0, f"torch.profiler saw no {entry} on the device")
+    return sum(e.self_device_time_total for e in seen) / 1e3 / launches
 
 
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
