@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port of ForkBase (src/repro_torch) on one
 NVIDIA GPU, built for an H100.
 
-    python3 chip_smoke.py [--records N] [--map-records N]
+    python3 chip_smoke.py [--records N] [--map-records N] [--durable-records N]
 
 Phases, in order; any failed check exits non-zero:
 
@@ -25,6 +25,21 @@ Phases, in order; any failed check exits non-zero:
    compared with the host copy, and an FMap of 1M records.  The launch
    counters are zeroed just before and read just after; the v1 root cid is
    recomputed with the plain versions on the card.
+4. The durable path on the same dataset shape, cut to 1M records by
+   default (--durable-records; at 5M it takes ~6 min on one H100):
+   ForkBase(durable_root=<a fresh temporary directory>, verify_get=True)
+   with fphash cids puts v1, v2 and the fork, syncs and closes; a new
+   engine reopens the root and reads every version back.  It checks the
+   reads against the host copies, the reopened heads against the heads
+   before the close, the uids against an in-memory engine's for the same
+   values (phase 3's when the sizes agree), the segment bytes on disk
+   against v1's bytes plus v2's new bytes (each x 1.05: dedup reaches the
+   disk), and that every kernel launched; the counters are zeroed before
+   the puts and again before the reopen, and the line "durable path:
+   {...}" gives both counts.  With verify_get every chunk a durable store
+   takes or serves is re-hashed one at a time, each a launch of the
+   single-string fphash kernel; check_ms is the mean time of one such
+   check on the dataset's leaf chunks.
 
 The line before the last is one JSON object with each kernel's launches on
 the main path, its time through its wrapper (ms), its kernel's device time
@@ -98,21 +113,26 @@ def kernel_ms(fn, name: str, reps: int) -> float:
     over reps calls of fn(), as torch.profiler reads it: the kernel alone,
     without the host work of its wrapper that ``cuda_ms`` also sees.  The
     mean is over the launches the profiler recorded, which can be fewer
-    than reps."""
+    than reps; a session that recorded none is taken again, twice at
+    most."""
     from torch.profiler import ProfilerActivity, profile
 
     entry = next(k for k, v in ENTRY_FUNCTIONS.items() if v == name)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    seen = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and entry in e.key]
-    launches = sum(e.count for e in seen)
+    # a session can record none of a burst's launches; take up to three
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and entry in e.key]
+        launches = sum(e.count for e in seen)
+        if launches:
+            break
     check(launches > 0, f"torch.profiler saw no {entry} on the device")
     return sum(e.self_device_time_total for e in seen) / 1e3 / launches
 
@@ -255,18 +275,15 @@ def make_records(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
     return buf, starts
 
 
-def main_path(records: int, map_records: int, seed: int = 0) -> dict:
-    """The engine's put/get path at a real size; returns the measurements
-    and the handles the later checks need."""
-    from repro_torch.core import FBlob, FMap, ForkBase
-    from repro_torch.core import hashing
-    from repro_torch.kernels import ops
-
+def make_dataset(records: int, map_records: int, seed: int = 0) -> dict:
+    """The versions the main path and the durable path put: v1 (``records``
+    records), v2 (1% of the records replaced in place in 20 runs spread
+    over the data: keys kept, ints and text rewritten at the same lengths),
+    the tail the fork appends, and the first ``map_records`` records as a
+    map of key -> rest of the record."""
     data, starts = make_records(records, seed)
     v1 = data.tobytes()
     rng = np.random.default_rng(seed + 1)
-    # 1% of the records, replaced in place in 20 runs spread over the data:
-    # keys kept, ints and text rewritten at the same lengths
     runs, per_run = 20, max(1, records // 100 // 20)
     v2_arr = data.copy()
     edits = []
@@ -286,8 +303,21 @@ def main_path(records: int, map_records: int, seed: int = 0) -> dict:
     items = {bytes(mv[int(starts[i]):int(starts[i]) + 12]):
              bytes(mv[int(starts[i]) + 12:int(starts[i + 1])])
              for i in range(min(map_records, records))}
+    return {"records": records, "v1": v1, "v2": v2, "edits": edits,
+            "edited_records": len(edits) * per_run, "tail": tail,
+            "items": items}
 
-    out = {"records": records, "bytes": len(v1), "map_records": len(items)}
+
+def main_path(ds: dict) -> dict:
+    """The engine's put/get path at a real size on dataset ``ds``; returns
+    the measurements and the handles the later checks need."""
+    from repro_torch.core import FBlob, FMap, ForkBase
+    from repro_torch.core import hashing
+    from repro_torch.kernels import ops
+
+    v1, v2, tail, items = ds["v1"], ds["v2"], ds["tail"], ds["items"]
+    out = {"records": ds["records"], "bytes": len(v1),
+           "map_records": len(items)}
     hashing.use_fphash()
     try:
         db = ForkBase(verify_get=True)
@@ -302,7 +332,7 @@ def main_path(records: int, map_records: int, seed: int = 0) -> dict:
               "v1 reads back wrong")
         out["get_s"] = time.perf_counter() - t
         b = db.get("dataset").blob()
-        for lo, n, new in edits:
+        for lo, n, new in ds["edits"]:
             b.replace(lo, n, new)
         t = time.perf_counter()
         uid2 = db.put("dataset", b)
@@ -329,8 +359,8 @@ def main_path(records: int, map_records: int, seed: int = 0) -> dict:
         out["launches"] = ops.launches()
     finally:
         hashing.use_sha256()
-    out.update(db=db, v1=v1, uid1=uid1, root1=root1,
-               edits=len(edits) * per_run)
+    out.update(db=db, v1=v1, uids=[uid1, uid2, uid3], root1=root1,
+               edits=ds["edited_records"])
     return out
 
 
@@ -349,6 +379,119 @@ def plain_root(v1: bytes) -> bytes:
     finally:
         ops.use_kernel_chunker(True)
         hashing.use_sha256()
+
+
+# ------------------------------------------------------------ phase 4
+
+def put_versions(db, ds: dict) -> dict:
+    """Put v1, v2 (the edits) and the fork's version (v2 and the tail, on
+    branch dev) of dataset ``ds`` into engine ``db``; returns their uids,
+    the two puts' seconds and v2's new physical bytes."""
+    from repro_torch.core import FBlob
+
+    out = {}
+    t = time.perf_counter()
+    uid1 = db.put("dataset", FBlob(ds["v1"]))
+    out["put_s"] = time.perf_counter() - t
+    phys1 = db.store.stats.physical_bytes
+    b = db.get("dataset").blob()
+    for lo, n, new in ds["edits"]:
+        b.replace(lo, n, new)
+    t = time.perf_counter()
+    uid2 = db.put("dataset", b)
+    out["put_v2_s"] = time.perf_counter() - t
+    out["v2_new_bytes"] = db.store.stats.physical_bytes - phys1
+    db.fork("dataset", "master", "dev")
+    b = db.get("dataset", "dev").blob()
+    b.append(ds["tail"])
+    out["uids"] = [uid1, uid2, db.put("dataset", b, "dev")]
+    return out
+
+
+def memory_uids(ds: dict) -> list[bytes]:
+    """The uids of ``put_versions`` in an in-memory engine with fphash
+    cids: what the durable engine must reproduce."""
+    from repro_torch.core import ForkBase, hashing
+
+    hashing.use_fphash()
+    try:
+        return put_versions(ForkBase(), ds)["uids"]
+    finally:
+        hashing.use_sha256()
+
+
+def durable_path(ds: dict, want_uids: list[bytes]) -> dict:
+    """The durable engine on dataset ``ds``: ``ForkBase(durable_root=...,
+    verify_get=True)`` with fphash cids in a fresh temporary directory puts
+    v1, v2 and the fork, syncs and closes; a new engine reopens the root
+    and reads every version back.  The uids must equal ``want_uids``, an
+    in-memory engine's for the same values.  Then the mean time of one
+    per-chunk check (``cid_of``, one single-string fphash launch) on leaf
+    chunks of the dataset.  The directory is removed at the end."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import ForkBase, POSTree, hashing
+    from repro_torch.core import chunk as ck
+    from repro_torch.kernels import ops
+
+    v1, v2, tail = ds["v1"], ds["v2"], ds["tail"]
+    out = {"records": ds["records"], "bytes": len(v1)}
+    root = tempfile.mkdtemp(prefix="forkbase-durable-")
+    hashing.use_fphash()
+    try:
+        db = ForkBase(durable_root=root, verify_get=True)
+        ops.reset_launches()
+        out.update(put_versions(db, ds))
+        t = time.perf_counter()
+        db.sync()
+        out["sync_s"] = time.perf_counter() - t
+        out["put_launches"] = ops.launches()
+        snapshot = db.branches.snapshot()
+        heads = db.branches.all_heads()
+        db.store.close()
+        del db
+
+        ops.reset_launches()
+        t = time.perf_counter()
+        db = ForkBase(durable_root=root, verify_get=True)
+        out["reopen_s"] = time.perf_counter() - t
+        check(db.branches.snapshot() == snapshot
+              and db.branches.all_heads() == heads,
+              "the reopened heads differ from the heads before the close")
+        uid1 = out["uids"][0]
+        t = time.perf_counter()
+        check(db.get("dataset", uid=uid1).blob().read() == v1,
+              "durable v1 reads back wrong")
+        check(db.get("dataset").blob().read() == v2,
+              "durable v2 reads back wrong")
+        check(db.get("dataset", "dev").blob().read() == v2 + tail,
+              "durable v3 reads back wrong")
+        out["get_s"] = time.perf_counter() - t
+        out["get_launches"] = ops.launches()
+        cold = db.store.cold
+        out["segments"] = cold.segment_count()
+        out["disk_bytes"] = cold.disk_bytes()
+
+        tree = POSTree.from_root(db.store, ck.BLOB,
+                                 db.get("dataset", uid=uid1).obj.data)
+        raws = db.store.get_many([e.cid for e in tree.levels[0][:10_000]])
+        t = time.perf_counter()
+        for raw in raws:
+            ck.cid_of(raw)
+        out["check_ms"] = (time.perf_counter() - t) / len(raws) * 1e3
+        out["check_bytes"] = sum(map(len, raws)) / len(raws)
+        db.store.close()
+    finally:
+        hashing.use_sha256()
+        shutil.rmtree(root, ignore_errors=True)
+    check(out["uids"] == want_uids,
+          "durable uids differ from the in-memory engine's")
+    limit = 1.05 * len(v1) + 1.05 * out["v2_new_bytes"]
+    check(out["disk_bytes"] < limit,
+          f"segments hold {out['disk_bytes']} B, over {limit:.0f} B: "
+          f"dedup does not reach the disk")
+    return out
 
 
 # ------------------------------------------------------------ breakdown
@@ -435,7 +578,7 @@ def time_kernels(mp: dict, dev) -> list[dict]:
                 "bound_ms": b, "bound_by": by, "max_abs_err": max_err(k, p)})
     del x, k, p
 
-    meta = db.store.get(mp["uid1"])
+    meta = db.store.get(mp["uids"][0])
     tree = POSTree.from_root(db.store, ck.BLOB, mp["root1"])
     raws = db.store.get_many([e.cid for e in tree.levels[0]])
     lengths = np.fromiter(map(len, raws), dtype=np.int64, count=len(raws))
@@ -512,6 +655,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--records", type=int, default=5_000_000)
     ap.add_argument("--map-records", type=int, default=1_000_000)
+    ap.add_argument("--durable-records", type=int, default=1_000_000,
+                    help="records of the durable path's dataset (phase 4); "
+                         "5,000,000 runs it on phase 3's dataset")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs a GPU",
@@ -545,7 +691,10 @@ def main() -> int:
     print(f"phase 2 (kernels vs plain): {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    mp = main_path(args.records, args.map_records)
+    ds = make_dataset(args.records, args.map_records)
+    print(f"dataset: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    mp = main_path(ds)
     print(f"phase 3 (main path): {time.perf_counter() - t:.1f} s")
     launches = mp["launches"]
     check(all(v > 0 for v in launches.values()),
@@ -571,6 +720,31 @@ def main() -> int:
     t = time.perf_counter()
     timed = time_kernels(mp, dev)
     print(f"kernel timing: {time.perf_counter() - t:.1f} s")
+    del mp["db"]
+
+    t = time.perf_counter()
+    if args.durable_records == args.records:
+        dds, want = ds, mp["uids"]
+    else:
+        dds = make_dataset(args.durable_records, 0)
+        want = memory_uids(dds)
+    dp = durable_path(dds, want)
+    print(f"phase 4 (durable path): {time.perf_counter() - t:.1f} s")
+    phase = {k: dp["put_launches"][k] + dp["get_launches"][k]
+             for k in dp["put_launches"]}
+    check(all(v > 0 for v in phase.values()),
+          f"a kernel never launched on the durable path: {phase}")
+    print("durable path: " + json.dumps({
+        "records": dp["records"], "bytes": dp["bytes"],
+        "put_MB_s": dp["bytes"] / 1e6 / dp["put_s"],
+        "put_v2_s": dp["put_v2_s"], "sync_s": dp["sync_s"],
+        "reopen_s": dp["reopen_s"],
+        "get_MB_s": (3 * dp["bytes"] + len(dds["tail"])) / 1e6 / dp["get_s"],
+        "segments": dp["segments"], "disk_bytes": dp["disk_bytes"],
+        "v2_new_bytes": dp["v2_new_bytes"],
+        "check_ms": dp["check_ms"], "check_bytes": dp["check_bytes"],
+        "put_launches": dp["put_launches"],
+        "get_launches": dp["get_launches"]}))
     kernels = []
     for row in timed:
         src, replaces = SOURCES[row["name"]]

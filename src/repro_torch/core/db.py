@@ -1,6 +1,6 @@
 """ForkBase connector — the public API (paper Table 1 + guarded Put §4.5.1
-+ Diff §3.2), the slice of it that needs no GC, proofs, live tables or
-durable storage (those verbs come with their slices of the port).
++ Diff §3.2), the slice of it that needs no GC, proofs or live tables
+(those verbs come with their slices of the port).
 
 Both fork semantics are first-class:
   * Fork-on-Demand  (FoD): named (tagged) branches, explicit Fork/Merge;
@@ -14,6 +14,7 @@ bytes, so a reference engine's state can be served by this one and back.
 """
 from __future__ import annotations
 
+import os
 from typing import Mapping
 
 from . import chunk as ck
@@ -93,7 +94,20 @@ class ForkBase:
 
     def __init__(self, store: StorageBackend | None = None,
                  params: ChunkParams = DEFAULT_PARAMS, *,
-                 verify_get: bool = False):
+                 verify_get: bool = False,
+                 durable_root: str | None = None,
+                 hot_bytes: int = 64 << 20,
+                 segment_bytes: int = 4 << 20):
+        # durable mode: chunks live in the tiered segment store under
+        # ``durable_root`` and branch heads are reloaded from the last
+        # ``sync()`` snapshot — reopening the same root resumes the
+        # engine with bit-identical heads
+        if store is None and durable_root is not None:
+            from ..storage.durable import open_durable
+            store = open_durable(durable_root, hot_bytes=hot_bytes,
+                                 segment_bytes=segment_bytes,
+                                 verify=verify_get)
+        self._durable_root = durable_root
         self.store = store if store is not None else ChunkStore()
         self.params = params
         self._obs_get_tick = 7       # 1-in-8 get timing; first sampled
@@ -101,6 +115,11 @@ class ForkBase:
         # uid (per-call ``verify=`` overrides; checks count in StoreStats)
         self.verify_get = verify_get
         self.branches = BranchTable()
+        if durable_root is not None:
+            head_path = _heads_path(durable_root)
+            if os.path.exists(head_path):
+                with open(head_path, "rb") as f:
+                    self.branches.restore(f.read())
 
     # ------------------------------------------------------------- put
     def _commit_value(self, value, store=None) -> tuple[int, bytes]:
@@ -315,6 +334,20 @@ class ForkBase:
     def remove(self, key: bytes, branch: str) -> None:          # M14
         self.branches.remove(_k(key), branch)
 
+    # ------------------------------------------------------- durability
+    def sync(self) -> None:
+        """Durability point for a durable-root engine: flush the store
+        (demote the hot tier, fsync segments, run GC-fed compaction)
+        and atomically snapshot the branch heads — after ``sync()``
+        returns, reopening the same root resumes with bit-identical
+        heads and every chunk reachable from them.  A no-op flush on a
+        non-durable engine."""
+        self.store.flush()
+        if self._durable_root is not None:
+            from ..storage.durable import write_durably
+            write_durably(_heads_path(self._durable_root),
+                          self.branches.snapshot())
+
     # ----------------------------------------------------------- track
     def track(self, key: bytes, ref: str | bytes,
               dist_rng: tuple[int, int] = (0, 1 << 30)) -> list[FObject]:
@@ -432,6 +465,10 @@ class ForkBase:
 
 def _k(key) -> bytes:
     return key.encode() if isinstance(key, str) else bytes(key)
+
+
+def _heads_path(root: str) -> str:
+    return os.path.join(root, "heads.json")
 
 
 def from_state(chunks: Mapping[bytes, bytes], heads: bytes, *,

@@ -227,13 +227,29 @@ def test_state_carry_rejects_a_wrong_chunk():
 
 
 def test_make_backend_specs(tmp_path):
+    """Every spec of the reference's grammar builds; what cannot be built
+    raises the typed ConfigError."""
+    from repro_torch.storage import (LRUCacheBackend, ReplicatedBackend,
+                                     SegmentBackend, ShardedBackend,
+                                     TieredBackend)
     assert isinstance(make_backend("memory"), MemoryBackend)
     log = make_backend("log", log_path=str(tmp_path / "c.log"))
     cid = log.put(b"\x03abc")
     log.flush()
     assert MemoryBackend(log_path=str(tmp_path / "c.log")).get(cid) == \
         b"\x03abc"
-    for spec in ("log", "segment", "lru+sharded", "bogus"):
+    lru = make_backend("lru+sharded", shards=2)
+    assert isinstance(lru, LRUCacheBackend)
+    assert isinstance(lru.inner, ShardedBackend)
+    assert len(lru.inner.shards) == 2
+    assert isinstance(make_backend("replicated", n=3, k=2),
+                      ReplicatedBackend)
+    assert isinstance(make_backend("segment", root=str(tmp_path / "s")),
+                      SegmentBackend)
+    assert isinstance(make_backend("tiered", root=str(tmp_path / "t")),
+                      TieredBackend)
+    for spec in ("log", "segment", "tiered", "bogus", "lru+bogus",
+                 "cache+memory"):
         with pytest.raises(ConfigError):
             make_backend(spec)
 
