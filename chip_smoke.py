@@ -3,6 +3,7 @@
 NVIDIA GPU, built for an H100.
 
     python3 chip_smoke.py [--records N] [--map-records N] [--durable-records N]
+                          [--ckpt-layers N] [--ckpt-breakdown]
 
 Phases, in order; any failed check exits non-zero:
 
@@ -40,6 +41,27 @@ Phases, in order; any failed check exits non-zero:
    takes or serves is re-hashed one at a time, each a launch of the
    single-string fphash kernel; check_ms is the mean time of one such
    check on the dataset's leaf chunks.
+5. The checkpoint path: the full-width TinyLlama-1.1B params (the JAX
+   package's train-state leaves for tinyllama-1.1b, 12 leaves and
+   2,200,281,088 B at 22 layers; --ckpt-layers cuts the depth) and
+   opt/step, filled on the card from a seeded generator, through
+   CheckpointStore(ForkBase(durable_root=<a fresh temporary directory>))
+   with fphash cids: step 0 saved on branch run, the last layer's slice
+   of every stacked tensor and final_norm edited on the card and step 1
+   saved, a fork sweep of step 0, sync and close; a reopen (heads equal,
+   the head verified against its uid), a restore of run onto the card,
+   sweep removed and run pruned to its last checkpoint (stop-the-world
+   GC, then sync: the compaction), a restore of only the edited leaves;
+   then the training controller in memory at 2 layers (6 steps, a
+   checkpoint every 2, a failure at step 3) against a run without
+   failure.  It checks step 1's new bytes (under 1.05 x the edited bytes
+   + 1 MiB), every restore and the replay bit for bit, the GC's swept,
+   reclaimed and compacted bytes and the disk bytes falling, the
+   params/embed root cid against the plain versions', and that every
+   kernel launched; the line "checkpoint path: {...}" gives the numbers.
+   --ckpt-breakdown adds a mark timed alone before the GC (mark_s) and a
+   save of step 0 into an in-memory store under torch.profiler
+   (save_profile: device time of kernels and copies against the wall).
 
 The line before the last is one JSON object with each kernel's launches on
 the main path, its time through its wrapper (ms), its kernel's device time
@@ -494,6 +516,342 @@ def durable_path(ds: dict, want_uids: list[bytes]) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 5
+
+# The params subtree of the JAX package's train state for tinyllama-1.1b
+# (src/repro/configs/tinyllama_1_1b.py: 22 layers, d_model 2048, 32 heads
+# with 4 KV heads, d_ff 5632, vocab 32000) as jax.eval_shape gives it:
+# leaf name, shape ("L" is the stacked layer axis) and dtype.  At 22
+# layers the leaves hold 2,200,281,088 bytes.
+TINYLLAMA_PARAMS = (
+    ("embed", (32000, 2048), "bfloat16"),
+    ("final_norm", (2048,), "float32"),
+    ("layers/attn/wk", ("L", 2048, 256), "bfloat16"),
+    ("layers/attn/wo", ("L", 2048, 2048), "bfloat16"),
+    ("layers/attn/wq", ("L", 2048, 2048), "bfloat16"),
+    ("layers/attn/wv", ("L", 2048, 256), "bfloat16"),
+    ("layers/ln1", ("L", 2048), "float32"),
+    ("layers/ln2", ("L", 2048), "float32"),
+    ("layers/mlp/w_gate", ("L", 2048, 5632), "bfloat16"),
+    ("layers/mlp/w_in", ("L", 2048, 5632), "bfloat16"),
+    ("layers/mlp/w_out", ("L", 5632, 2048), "bfloat16"),
+    ("unembed", (2048, 32000), "bfloat16"),
+)
+TINYLLAMA_LAYERS = 22
+TINYLLAMA_PARAM_BYTES = 2_200_281_088
+
+
+def synchronize(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ckpt_state(table, n_layers: int, dev, seed: int) -> dict:
+    """{"params": <the table's leaves, nested by name>, "opt": {"step": 0}}
+    with the leaves drawn on ``dev`` from a seeded generator: weights
+    N(0, 0.02), norms 1 + N(0, 0.02)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params: dict = {}
+    for name, shape, dtype in table:
+        shape = tuple(n_layers if d == "L" else d for d in shape)
+        x = torch.randn(shape, generator=gen, device=dev,
+                        dtype=getattr(torch, dtype)).mul_(0.02)
+        if "norm" in name or name.startswith("layers/ln"):
+            x.add_(1)
+        *path, leaf = name.split("/")
+        node = params
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = x
+    return {"params": params,
+            "opt": {"step": torch.tensor(0, dtype=torch.int32, device=dev)}}
+
+
+def tree_leaves(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """(name, leaf) of a tree of dicts, keys sorted as the checkpoint
+    names them."""
+    out = []
+    for k in sorted(tree):
+        name = f"{prefix}{k}"
+        if isinstance(tree[k], dict):
+            out += tree_leaves(tree[k], name + "/")
+        else:
+            out.append((name, tree[k]))
+    return out
+
+
+def map_layers(params: dict, fn) -> dict:
+    """``params`` with ``fn`` applied to every stacked layer tensor."""
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else fn(v)
+                for k, v in node.items()}
+    return {**params, "layers": walk(params["layers"])}
+
+
+def finetune(state: dict, dev, seed: int) -> tuple[dict, int]:
+    """Step 1's "fine-tune": seeded noise added to the last layer's slice
+    of every stacked tensor and to final_norm.  Returns the new state
+    (the unedited leaves shared with ``state``) and the bytes edited."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def edit(x):
+        x = x.clone()
+        x[-1].add_(torch.randn(x[-1].shape, generator=gen, device=dev,
+                               dtype=x.dtype).mul_(0.01))
+        return x
+
+    params = map_layers(state["params"], edit)
+    params["final_norm"] = edit(state["params"]["final_norm"][None])[0]
+    step = state["opt"]["step"] + 1
+    edited = [x[-1] for _, x in tree_leaves(params["layers"])]
+    edited += [params["final_norm"], step]
+    return ({"params": params, "opt": {"step": step}},
+            sum(x.numel() * x.element_size() for x in edited))
+
+
+def trees_equal(got: dict, want: dict) -> bool:
+    g, w = tree_leaves(got), tree_leaves(want)
+    return ([n for n, _ in g] == [n for n, _ in w]
+            and all(a.dtype == b.dtype and a.shape == b.shape
+                    and a.device == b.device and torch.equal(a, b)
+                    for (_, a), (_, b) in zip(g, w)))
+
+
+class TokenData:
+    """Token batches of a vocabulary, deterministic in (seed, step)."""
+
+    def __init__(self, vocab: int, seed: int = 0):
+        self.vocab = vocab
+        self.seed = seed
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed << 32) ^ step)
+        return {"tokens": rng.integers(0, self.vocab, (8, 256),
+                                       dtype=np.int32)}
+
+
+def layer_step(state: dict, batch: dict):
+    """A deterministic training step on the card: every stacked layer
+    tensor moves by an elementwise function of itself and of the batch's
+    mean token (no reduction order to vary between runs)."""
+    s = batch["tokens"].float().mean() / 32000
+
+    def upd(w):
+        f = w.float()
+        return (f + 1e-3 * s * torch.sin(f)).to(w.dtype)
+
+    return ({"params": map_layers(state["params"], upd),
+             "opt": {"step": state["opt"]["step"] + 1}}, {"loss": s})
+
+
+def profile_save(state: dict) -> dict:
+    """Where a save of ``state`` (on the card) spends its time: the save
+    again into an in-memory CheckpointStore under torch.profiler — the
+    device time of the kernels, of the D2H copies of the leaves and of the
+    H2D copies of their bytes back to the card (the chunker's stream and
+    the hash batches), against the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.ckpt import CheckpointStore
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        CheckpointStore().save(state, "run", step=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    us = {"kernel": 0.0, "d2h": 0.0, "h2d": 0.0, "other_copy": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = e.key.lower()
+        kind = ("d2h" if "dtoh" in key else "h2d" if "htod" in key
+                else "other_copy" if "memcpy" in key else "kernel")
+        us[kind] += e.self_device_time_total
+    busy = sum(us.values()) / 1e6
+    return {"wall_s": wall, **{f"device_{k}_s": v / 1e6 for k, v in us.items()},
+            "device_busy_share": busy / wall}
+
+
+def checkpoint_path(dev, n_layers: int = TINYLLAMA_LAYERS,
+                    table=TINYLLAMA_PARAMS, breakdown: bool = False,
+                    **store_kw) -> dict:
+    """Phase 5: the params of ``table`` at ``n_layers`` (and opt/step) on
+    ``dev``, checkpointed through ``CheckpointStore(ForkBase(durable_root=
+    <fresh temporary directory>))`` with fphash cids: save step 0 on
+    branch run, fine-tune the last layer and save step 1, fork sweep from
+    step 0, sync and close; reopen, restore run on ``dev``; remove sweep,
+    prune run to its last checkpoint (stop-the-world GC) and sync (the
+    compaction); restore only the edited leaves.  Then the training
+    controller in memory at 2 layers: 6 steps, a checkpoint every 2, a
+    failure at step 3, against a run without failure.  Every check fails
+    the run; the directory is removed at the end.  ``breakdown`` adds two
+    diagnostics no check reads: a mark alone before the prune's GC
+    (``mark_s``; it warms the store's caches for that GC) and
+    ``profile_save`` (on the card).
+    ``store_kw`` (``hot_bytes``, ``segment_bytes``) scales the durable
+    store down for a rehearsal at a small width; the card's run keeps
+    the engine's defaults."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import CheckpointStore
+    from repro_torch.core import ForkBase, hashing
+    from repro_torch.gc import mark
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import run_resilient
+
+    out: dict = {"layers": n_layers}
+    root = tempfile.mkdtemp(prefix="forkbase-ckpt-")
+    hashing.use_fphash()
+    try:
+        state0 = ckpt_state(table, n_layers, dev, seed=0)
+        leaves0 = tree_leaves(state0)
+        out["bytes"] = sum(x.numel() * x.element_size() for _, x in leaves0)
+        out["leaves"] = len(leaves0)
+        synchronize(dev)
+        t = time.perf_counter()
+        for _, x in leaves0:
+            x.reshape(-1).view(torch.uint8).cpu()
+        out["d2h_s"] = time.perf_counter() - t
+
+        cs = CheckpointStore(ForkBase(durable_root=root, **store_kw))
+        stats = cs.db.store.stats
+        ops.reset_launches()
+        t = time.perf_counter()
+        uid0 = cs.save(state0, "run", step=0)
+        out["save0_s"] = time.perf_counter() - t
+        phys0 = stats.physical_bytes
+        state1, out["edited_bytes"] = finetune(state0, dev, seed=1)
+        synchronize(dev)
+        t = time.perf_counter()
+        cs.save(state1, "run", step=1)
+        out["save1_s"] = time.perf_counter() - t
+        out["save1_new_bytes"] = stats.physical_bytes - phys0
+        cs.fork(uid0, "sweep")
+        t = time.perf_counter()
+        cs.sync()
+        out["sync_s"] = time.perf_counter() - t
+        snapshot = cs.db.branches.snapshot()
+        heads = cs.db.branches.all_heads()
+        cs.db.store.close()
+        del cs
+        print(f"  phase 5: saved 2 checkpoints of {out['bytes']} B "
+              f"({out['save0_s']:.1f} s, {out['save1_s']:.1f} s)",
+              flush=True)
+
+        t = time.perf_counter()
+        cs = CheckpointStore(ForkBase(durable_root=root, **store_kw))
+        out["reopen_s"] = time.perf_counter() - t
+        check(cs.db.branches.snapshot() == snapshot
+              and cs.db.branches.all_heads() == heads,
+              "checkpoint store: the reopened heads differ from the heads "
+              "before the close")
+        # tamper evidence of the reopened head: its meta chunk re-hashed
+        # against its uid (the single-string fphash kernel; the saves hash
+        # every chunk, meta chunks included, in fphash_many batches)
+        check(cs.db.get(cs.key, "run", verify=True) is not None,
+              "the reopened head does not verify")
+        t = time.perf_counter()
+        restored = cs.restore(state1, "run")
+        synchronize(dev)
+        out["restore_s"] = time.perf_counter() - t
+        check(trees_equal(restored, state1),
+              "the restored step 1 differs from the saved state")
+        del restored
+        manifest = cs.db.get(cs.key, "run").map()
+        embed_cid = json.loads(manifest.get(b"params/embed"))["cid"]
+        embed_bytes = (state1["params"]["embed"].reshape(-1)
+                       .view(torch.uint8).cpu().numpy().tobytes())
+        print(f"  phase 5: reopened and restored "
+              f"({out['restore_s']:.1f} s)", flush=True)
+
+        cold = cs.db.store.cold
+        out["disk_bytes_before"] = cold.disk_bytes()
+        cs.db.remove(cs.key, "sweep")
+        if breakdown:
+            # the mark alone, as the prune's collection will run it:
+            # every live chunk, leaves included, read back from the store
+            t = time.perf_counter()
+            mark(cs.db.store, cs.db.branches.all_heads(), cs.db.gc_hooks)
+            out["mark_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        kept, rep = cs.prune("run", keep_last=1)
+        out["gc_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        cs.sync()
+        out["sync_after_gc_s"] = time.perf_counter() - t
+        out["disk_bytes_after"] = cold.disk_bytes()
+        out["gc"] = {"roots": rep.roots, "live_chunks": rep.live_chunks,
+                     "swept_chunks": rep.swept_chunks,
+                     "reclaimed_bytes": rep.reclaimed_bytes,
+                     "mark_rounds": rep.mark_rounds,
+                     "compacted_bytes": rep.compacted_bytes,
+                     "compactions": cold.stats.compactions}
+        check(kept == [cs.db.get(cs.key, "run", verify=True).uid]
+              and [h[1]["step"] for h in cs.history("run")] == [1],
+              "prune kept the wrong checkpoints")
+        print(f"  phase 5: pruned and collected ({out['gc_s']:.1f} s)",
+              flush=True)
+
+        touched = {"params": {"final_norm": state1["params"]["final_norm"],
+                              "layers": state1["params"]["layers"]}}
+        t = time.perf_counter()
+        part = cs.restore(touched, "run")
+        synchronize(dev)
+        out["partial_restore_s"] = time.perf_counter() - t
+        out["partial_bytes"] = sum(x.numel() * x.element_size()
+                                   for _, x in tree_leaves(touched))
+        check(trees_equal(part, touched),
+              "the partial restore differs from the saved leaves")
+        del part
+        out["launches"] = ops.launches()
+        cs.db.store.close()
+        del cs, state1, touched
+        if breakdown and torch.device(dev).type == "cuda":
+            out["save_profile"] = profile_save(state0)
+        del state0
+
+        init = ckpt_state(table, 2, dev, seed=2)
+        data = TokenData(32000, seed=3)
+        ops.reset_launches()
+        t = time.perf_counter()
+        clean = run_resilient(layer_step, init, data, n_steps=6,
+                              ckpt_every=2)
+        failed = run_resilient(layer_step, init, data, n_steps=6,
+                               ckpt_every=2, fail_at=(3,))
+        synchronize(dev)
+        out["controller_s"] = time.perf_counter() - t
+        out["controller_launches"] = ops.launches()
+        out["restarts"] = failed.restarts
+        check(failed.restarts == 1 and failed.step == clean.step == 6,
+              f"the controller restarted {failed.restarts} times")
+        check(trees_equal(failed.state, clean.state),
+              "the replayed run differs from the run without failure")
+        check(not trees_equal(clean.state, init),
+              "the controller's steps changed nothing")
+    finally:
+        hashing.use_sha256()
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the plain versions set their own hooks (and restore sha256 after)
+    check(plain_root(embed_bytes).hex() == embed_cid,
+          "the params/embed root cid differs from the plain versions'")
+    limit = 1.05 * out["edited_bytes"] + (1 << 20)
+    check(out["save1_new_bytes"] < limit,
+          f"step 1 stored {out['save1_new_bytes']} new bytes, over "
+          f"{limit:.0f}: dedup misses the unedited layers")
+    g = out["gc"]
+    check(g["swept_chunks"] > 0, "the GC swept nothing")
+    check(g["reclaimed_bytes"] >= 0.9 * out["save1_new_bytes"],
+          f"the GC reclaimed {g['reclaimed_bytes']} B, under 0.9 x step "
+          f"1's {out['save1_new_bytes']} new bytes")
+    check(g["compacted_bytes"] > 0, "the GC's flush compacted nothing")
+    check(out["disk_bytes_after"] < out["disk_bytes_before"],
+          "the disk bytes did not fall across the GC and sync()")
+    return out
+
+
 # ------------------------------------------------------------ breakdown
 
 def profile_put(v1: bytes) -> dict:
@@ -658,6 +1016,12 @@ def main() -> int:
     ap.add_argument("--durable-records", type=int, default=1_000_000,
                     help="records of the durable path's dataset (phase 4); "
                          "5,000,000 runs it on phase 3's dataset")
+    ap.add_argument("--ckpt-layers", type=int, default=TINYLLAMA_LAYERS,
+                    help="layers of the TinyLlama-1.1B checkpoint of "
+                         "phase 5 (its depth; the width stays full)")
+    ap.add_argument("--ckpt-breakdown", action="store_true",
+                    help="phase 5 also times a mark alone before the GC "
+                         "and profiles a save of step 0 (about 20 s)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs a GPU",
@@ -745,6 +1109,34 @@ def main() -> int:
         "check_ms": dp["check_ms"], "check_bytes": dp["check_bytes"],
         "put_launches": dp["put_launches"],
         "get_launches": dp["get_launches"]}))
+
+    t = time.perf_counter()
+    cp = checkpoint_path(dev, args.ckpt_layers, breakdown=args.ckpt_breakdown)
+    print(f"phase 5 (checkpoint path): {time.perf_counter() - t:.1f} s")
+    both = {k: cp["launches"][k] + cp["controller_launches"][k]
+            for k in cp["launches"]}
+    check(all(v > 0 for v in both.values()),
+          f"a kernel never launched on the checkpoint path: {both}")
+    mb = cp["bytes"] / 1e6
+    print("checkpoint path: " + json.dumps({
+        "layers": cp["layers"], "leaves": cp["leaves"], "bytes": cp["bytes"],
+        "save0_s": cp["save0_s"], "save0_MB_s": mb / cp["save0_s"],
+        "save1_s": cp["save1_s"], "save1_MB_s": mb / cp["save1_s"],
+        "edited_bytes": cp["edited_bytes"],
+        "save1_new_bytes": cp["save1_new_bytes"], "d2h_s": cp["d2h_s"],
+        "sync_s": cp["sync_s"], "reopen_s": cp["reopen_s"],
+        "restore_s": cp["restore_s"], "restore_MB_s": mb / cp["restore_s"],
+        "partial_bytes": cp["partial_bytes"],
+        "partial_restore_s": cp["partial_restore_s"],
+        "gc": cp["gc"], "gc_s": cp["gc_s"],
+        "sync_after_gc_s": cp["sync_after_gc_s"],
+        "disk_bytes_before": cp["disk_bytes_before"],
+        "disk_bytes_after": cp["disk_bytes_after"],
+        "disk_ratio": cp["disk_bytes_after"] / cp["disk_bytes_before"],
+        "controller_s": cp["controller_s"], "restarts": cp["restarts"],
+        "launches": cp["launches"],
+        "controller_launches": cp["controller_launches"],
+        **{k: cp[k] for k in ("mark_s", "save_profile") if k in cp}}))
     kernels = []
     for row in timed:
         src, replaces = SOURCES[row["name"]]
@@ -755,6 +1147,7 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shape": row["shape"],
+            "ckpt_launches": both[row["name"]],
             "kernel_ms": row["kernel_ms"],
             "registers": ptx[row["name"]]["registers"]})
     print(json.dumps({"kernels": kernels}))

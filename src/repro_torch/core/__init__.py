@@ -3,19 +3,21 @@
 Public surface:
   ForkBase (db.py)          — embedded engine: put/get (single and
                               batched), branch views, fork/rename/remove,
-                              track/lca/diff/merge (Table 1)
+                              track/lca/diff/merge (Table 1), gc /
+                              incremental_gc / truncate_history, observe
   from_state (db.py)        — an engine over carried-over chunks and heads
   FBlob/FList/FMap/FSet     — chunkable types (POS-Tree backed)
   FString/FTuple/FInt       — primitive types
   POSTree (postree.py)      — Pattern-Oriented-Split Tree
   ChunkStore                — content-addressed chunk storage (alias of
-                              storage.MemoryBackend)
+                              storage.MemoryBackend; ReplicatedStore of
+                              storage.ReplicatedBackend)
 
 The cluster and its runtime come with a later slice.
 """
 from .branch import (DEFAULT_BRANCH, BranchExists, GuardFailed, NoSuchRef)
 from .chunker import ChunkParams, DEFAULT_PARAMS
-from .chunkstore import ChunkStore
+from .chunkstore import ChunkStore, ReplicatedStore
 from .db import ForkBase, TypeNotMatch, ValueHandle, from_state
 from .fobject import FObject, load_fobject, make_fobject
 from .merge import (BUILTIN_RESOLVERS, Conflict, MergeConflict,
@@ -26,7 +28,7 @@ from ..storage import (ChunkMissing, StorageBackend, TamperedChunk,
                        WriteBuffer, make_backend)
 
 __all__ = [
-    "ForkBase", "ChunkStore", "POSTree", "from_state",
+    "ForkBase", "ChunkStore", "ReplicatedStore", "POSTree", "from_state",
     "FBlob", "FList", "FMap", "FSet", "FString", "FTuple", "FInt",
     "FObject", "ChunkParams", "DEFAULT_PARAMS", "DEFAULT_BRANCH",
     "GuardFailed", "BranchExists", "NoSuchRef", "TypeNotMatch",

@@ -1,15 +1,18 @@
 """Content-addressed chunk storage (paper §4.4) — compatibility facade.
 
-The implementation lives in ``storage`` behind the single
-``StorageBackend`` protocol; the historical name is preserved here:
+The implementations live in ``storage`` behind the single
+``StorageBackend`` protocol; the historical names are preserved here:
 
   ChunkStore      -> storage.MemoryBackend (memory + optional log file)
+  ReplicatedStore -> storage.ReplicatedBackend
 """
 from __future__ import annotations
 
-from ..storage import (ChunkMissing, MemoryBackend, StorageBackend,
-                       StoreStats)
+from ..storage import (ChunkMissing, MemoryBackend, ReplicatedBackend,
+                       StorageBackend, StoreStats)
 
 ChunkStore = MemoryBackend
+ReplicatedStore = ReplicatedBackend
 
-__all__ = ["ChunkStore", "StoreStats", "StorageBackend", "ChunkMissing"]
+__all__ = ["ChunkStore", "ReplicatedStore", "StoreStats", "StorageBackend",
+           "ChunkMissing"]

@@ -1,6 +1,8 @@
 """ForkBase connector — the public API (paper Table 1 + guarded Put §4.5.1
-+ Diff §3.2), the slice of it that needs no GC, proofs or live tables
-(those verbs come with their slices of the port).
++ Diff §3.2) with chunk GC (stop-the-world and incremental), retention
+(``truncate_history``) and ``observe()``; proofs and live tables come
+with their slices of the port (``verify_lineage`` raises ``ConfigError``
+until then).
 
 Both fork semantics are first-class:
   * Fork-on-Demand  (FoD): named (tagged) branches, explicit Fork/Merge;
@@ -15,7 +17,7 @@ bytes, so a reference engine's state can be served by this one and back.
 from __future__ import annotations
 
 import os
-from typing import Mapping
+from typing import Iterable, Mapping
 
 from . import chunk as ck
 from . import merge as mg
@@ -23,6 +25,7 @@ from .branch import DEFAULT_BRANCH, BranchTable, GuardFailed, NoSuchRef
 from .chunker import ChunkParams, DEFAULT_PARAMS
 from .chunkstore import ChunkStore
 from .. import obs
+from ..errors import ConfigError
 from ..storage import StorageBackend, WriteBuffer
 from .fobject import FObject, load_fobject, make_fobject
 from .postree import POSTree
@@ -120,6 +123,29 @@ class ForkBase:
             if os.path.exists(head_path):
                 with open(head_path, "rb") as f:
                     self.branches.restore(f.read())
+        # explicit GC roots: in-flight readers / retention holds pin the
+        # uids they need across a concurrent collect(); pinning mid-
+        # collection fires the incremental root barrier
+        from ..gc.incremental import EpochFence
+        from ..gc.pins import PinSet
+        self.pins = PinSet(on_pin=self._gc_root_barrier)
+        # attestation/GC epoch handshake: collections root pins still in
+        # the grace window (heads_fn backs the fence's bloom spill path:
+        # pins past the memory cap are recovered by filtering current
+        # heads)
+        self.gc_fence = EpochFence()
+        self.gc_fence.heads_fn = self.branches.all_heads
+        # live tables (the flat-state fast path) come with their slice of
+        # the port; observe() reports their aggregates, zero until then
+        self._live: dict = {}
+        # application-level link extractors (gc.mark ref_hooks): layers
+        # that embed cids inside opaque values (ckpt manifests) register
+        # here so gc() can trace through them
+        self.gc_hooks: list = []
+        # in-flight incremental collections this engine must barrier for
+        # (store-level put barriers are installed by the collector; this
+        # registry carries the *root* barrier: fork-from-uid, new pins)
+        self.gc_collectors: list = []
 
     # ------------------------------------------------------------- put
     def _commit_value(self, value, store=None) -> tuple[int, bytes]:
@@ -325,7 +351,10 @@ class ForkBase:
                else bytes(ref))
         if uid is None or (not isinstance(ref, str)
                            and not self.store.has(uid)):
-            raise NoSuchRef(ref)
+            raise NoSuchRef(ref)   # a dangling tag would poison GC roots
+        # root barrier: tagging an arbitrary uid mid-collection re-roots
+        # its subgraph — it must be shaded (mark) or rescued (sweep)
+        self._gc_root_barrier(uid)
         self.branches.fork(key, new_branch, uid)
 
     def rename(self, key: bytes, old: str, new: str) -> None:   # M13
@@ -347,6 +376,149 @@ class ForkBase:
             from ..storage.durable import write_durably
             write_durably(_heads_path(self._durable_root),
                           self.branches.snapshot())
+
+    # ---------------------------------------------------- observability
+    def observe(self) -> dict:
+        """Engine observability snapshot: the global registry / event
+        journal / GC history plus this engine's StoreStats (pulled at
+        snapshot time, never re-counted) and live-table aggregates.
+        JSON-safe — ``json.dumps(db.observe())`` round-trips."""
+        live = {"tables": len(self._live), "dirty_keys": 0, "folds": 0,
+                "fold_seconds": 0.0}
+        extra = {"engine": {
+            "keys": len(self.branches.keys()),
+            "pins": len(self.pins.uids()),
+            "gc_epoch": self.gc_fence.epoch,
+            "live": live,
+        }}
+        return obs.snapshot(stores={"store": self.store.stats},
+                            extra=extra)
+
+    # ---------------------------------------------------- space reclaim
+    def gc(self, *, extra_roots: Iterable[bytes] = (),
+           incremental: bool = False, budget: int = 256):
+        """Mark-and-sweep: everything reachable from the TB/UB heads of
+        every key (plus ``self.pins`` and ``extra_roots``) survives; the
+        rest is removed via the backend's ``delete_many``.  Returns a
+        ``gc.GCReport``.
+
+        ``incremental=True`` runs the same collection as a tri-color
+        epoch in ``budget``-bounded slices (``gc.IncrementalCollector``)
+        — every pause is O(budget) chunks instead of O(DAG); use
+        ``incremental_gc()`` to interleave the slices with your own
+        traffic.
+
+        When the store is a cluster routing store, its sweep inventory
+        spans the whole cluster, so the collection must be the
+        cluster's: this delegates to ``Cluster.gc`` (contributing this
+        engine's own heads, pins and hooks).  The cluster comes with a
+        later slice of the port; until then no store has a cluster."""
+        from ..gc import GarbageCollector
+        cluster = getattr(self.store, "cluster", None)
+        if cluster is not None:
+            roots = (set(extra_roots) | self.branches.all_heads()
+                     | self.pins.uids())
+            return cluster.gc(extra_roots=roots, extra_hooks=self.gc_hooks,
+                              incremental=incremental, budget=budget)
+        if incremental:
+            return self.incremental_gc(extra_roots=extra_roots).collect(
+                budget)
+        # STW collections honor the attestation epoch fence too: heads
+        # committed by a recent attestation stay provable for one more
+        # epoch regardless of how the collection is driven
+        self.gc_fence.begin_epoch()
+        roots = set(extra_roots) | self.gc_fence.grace_roots()
+        report = GarbageCollector(self.store, branches=self.branches,
+                                  pins=self.pins, extra_roots=roots,
+                                  ref_hooks=self.gc_hooks).collect()
+        obs.record_gc_report(report)
+        obs.emit("gc.done", mode="stw", scope="engine",
+                 swept=report.swept_chunks,
+                 reclaimed_bytes=report.reclaimed_bytes)
+        return report
+
+    def incremental_gc(self, *, extra_roots: Iterable[bytes] = ()):
+        """Begin an incremental collection epoch and return its
+        ``gc.IncrementalCollector`` (already in MARK, barriers
+        installed): interleave ``step(budget)`` with your own commits;
+        every put/merge/fork/pin in between is barriered, so no chunk
+        reachable from any head or pin is ever swept.  On a cluster
+        routing store this is the cluster's collection (see ``gc``)."""
+        from ..gc import IncrementalCollector
+        cluster = getattr(self.store, "cluster", None)
+        if cluster is not None:
+            roots = (set(extra_roots) | self.branches.all_heads()
+                     | self.pins.uids())
+            col = cluster.incremental_gc(extra_roots=roots,
+                                         extra_hooks=self.gc_hooks)
+            # an external engine sharing a routing store is a committer
+            # too: its fork-from-uid / pin root barriers must reach the
+            # cluster's collection
+            self._track_collector(col)
+            return col
+        col = IncrementalCollector(self.store, branches=self.branches,
+                                   pins=self.pins, extra_roots=extra_roots,
+                                   ref_hooks=self.gc_hooks,
+                                   fence=self.gc_fence)
+        col.begin()
+        self._track_collector(col)
+        return col
+
+    def _track_collector(self, col) -> None:
+        """Register an in-flight collection for root barriers, dropping
+        finished epochs so back-to-back collections don't accumulate."""
+        self.gc_collectors = [c for c in self.gc_collectors
+                              if c.active and c is not col]
+        self.gc_collectors.append(col)
+
+    def _gc_root_barrier(self, uid: bytes) -> None:
+        """Forward a re-rooting event (fork-from-uid, new pin) to every
+        in-flight incremental collection; finished ones drop out."""
+        if not self.gc_collectors:
+            return
+        self.gc_collectors = [c for c in self.gc_collectors if c.active]
+        for c in self.gc_collectors:
+            c.root_barrier(uid)
+
+    def truncate_history(self, key: bytes, branch: str,
+                         keep_uids: "list[bytes]",
+                         base_uid: bytes | None = None
+                         ) -> dict[bytes, bytes]:
+        """Destructive retention primitive: rewrite ``branch``'s version
+        chain to exactly ``keep_uids`` (newest first, as returned by
+        ``track``), relinking each kept version's ``bases`` to the
+        previous kept one; the oldest links to ``base_uid`` if given
+        (the anchor: an untouched ancestor, e.g. history shared with
+        another branch) and otherwise becomes a root.  Kept versions get
+        new uids (the meta chunk changes; hash-chain tamper evidence is
+        preserved over the *retained* chain); retired versions become
+        unreachable, so the next ``gc()`` sweeps them.  The rewritten
+        chain is linear — merge second-parents above the anchor are
+        dropped, which is what makes their subtrees collectable.
+        Returns {old uid: new uid}."""
+        key = _k(key)
+        if not keep_uids:
+            raise NoSuchRef(branch)
+        old_head = self.branches.head(key, branch)
+        if old_head is None:
+            raise NoSuchRef(branch)
+        mapping: dict[bytes, bytes] = {}
+        prev = base_uid
+        base_depth = (load_fobject(self.store, base_uid).depth
+                      if base_uid is not None else -1)
+        batch = WriteBuffer(self.store)
+        for uid in reversed(keep_uids):
+            obj = load_fobject(self.store, uid)
+            bases = (prev,) if prev is not None else ()
+            new = make_fobject(batch, obj.type, obj.key, obj.data, bases,
+                               obj.context, base_depth)
+            mapping[uid] = new.uid
+            prev = new.uid
+            base_depth += 1
+        batch.flush()
+        self.branches.on_new_version(key, prev, (old_head,))
+        self.branches.set_head(key, branch, prev)
+        return mapping
 
     # ----------------------------------------------------------- track
     def track(self, key: bytes, ref: str | bytes,
@@ -461,6 +633,15 @@ class ForkBase:
                            depth)
         self.branches.on_new_version(key, obj.uid, (uid1, uid2), foc=foc)
         return obj.uid
+
+    # ----------------------------------------------------- verification
+    def verify_lineage(self, uid: bytes, ancestor: bytes,
+                       max_depth: int = 1 << 30) -> bool:
+        """Tamper-evidence check (§3.2): is ``ancestor`` in uid's
+        history?  It walks a lineage proof, and the proof subsystem is
+        not ported yet, so this raises ``ConfigError``."""
+        raise ConfigError("ForkBase.verify_lineage needs the proof "
+                          "subsystem, which is not ported yet")
 
 
 def _k(key) -> bytes:

@@ -252,6 +252,12 @@ class BackendBase:
     def __init__(self) -> None:
         self.stats = StoreStats()
         self._put_listeners: list = []
+        #: While an incremental collection is in flight the collector
+        #: parks its RLock here (see gc.incremental), making one put
+        #: batch — store write, index update, barrier notification —
+        #: atomic against mark/freeze/sweep slices.  None between
+        #: collections: zero cost on the common path.
+        self._barrier_lock = None
         self._obs_hists: dict = {}
         self._obs_tick = 7           # 1-in-8 read sampling; first sampled
 
@@ -291,6 +297,20 @@ class BackendBase:
     # ---- instrumented batched dispatchers ----
     def put_many(self, raws: Sequence[bytes],
                  cids: Sequence[bytes | None] | None = None) -> list[bytes]:
+        # GC write/sweep exclusion: without the barrier lock a sweep
+        # slice can delete a dedup re-put's chunk in the window between
+        # its store write and its _notify_put barrier — the put path
+        # takes the collector lock FIRST (order: servlet ≺ collector ≺
+        # {index, store}), so either the whole put lands before the
+        # slice (the barrier rescues the cid) or after it (the put
+        # re-stores the swept chunk; content addressing makes that safe)
+        lk = self._barrier_lock
+        if lk is not None:
+            with lk:
+                return self._put_many_timed(raws, cids)
+        return self._put_many_timed(raws, cids)
+
+    def _put_many_timed(self, raws, cids=None) -> list[bytes]:
         if not _OBS.enabled:
             return self._put_many_impl(raws, cids)
         with _trace("store.put", _hist=self._obs_hist("put"),

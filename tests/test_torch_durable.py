@@ -1,8 +1,8 @@
 """Durable tiered storage of the port (repro_torch.storage.durable), on
-the CPU: crash recovery, restart, tiering policy and compaction — the
-JAX package's ``tests/test_durable.py``, less the tests that need the GC,
-cluster and checkpoint slices of the port (the GC report's compacted
-bytes, the durable cluster restart, the durable checkpoint restart).
+the CPU: crash recovery, restart, tiering policy, GC-fed compaction and
+the durable checkpoint restart — the JAX package's
+``tests/test_durable.py``, less the durable cluster restart, which comes
+with the cluster slice of the port.
 
 The reopen-after-kill family runs against BOTH append-only on-disk
 stores — ``MemoryBackend(log_path=...)`` and ``SegmentBackend`` — since
@@ -14,8 +14,9 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
-from repro_torch.core import ForkBase, FMap
+from repro_torch.core import FBlob, ForkBase, FMap
 from repro_torch.core.branch import BranchTable
 from repro_torch.core.chunk import cid_of, encode_chunk
 from repro_torch.kernels import ops
@@ -238,6 +239,21 @@ def test_tombstone_survives_compaction_against_earlier_segment(tmp_path,
     be2.close()
 
 
+def test_gc_report_carries_compacted_bytes(tmp_path, rng):
+    db = ForkBase(SegmentBackend(str(tmp_path / "segs"),
+                                 segment_bytes=4 << 10))
+    keep = rng.bytes(50_000)
+    db.put("k", FBlob(keep))
+    db.fork("k", "master", "scratch")
+    db.put("k", FBlob(rng.bytes(50_000)), "scratch")
+    db.remove("k", "scratch")
+    report = db.gc()
+    assert report.swept_chunks > 0
+    assert report.compacted_bytes > 0       # the sweep fed the compactor
+    assert "compacted" in str(report)
+    assert db.get("k").blob().read() == keep
+
+
 # ------------------------------------------------------------- tiering
 
 def test_tier_liveness_dirty_chunks_demote_before_eviction(tmp_path, rng):
@@ -312,9 +328,29 @@ def test_forkbase_durable_restart_bit_identical_heads(tmp_path, rng):
     assert db2.branches.snapshot() == snap  # bit-identical
     assert db2.branches.all_heads() == heads
     assert db2.get(b"table", "dev").map().get(b"extra") == b"x"
-    # the restarted engine keeps working: put, sync
+    # the restarted engine keeps working: put, gc, sync
     db2.put(b"table", FMap({b"a": b"1"}), "dev")
+    assert db2.gc().missing_roots == 0
     db2.sync()
+
+
+def test_ckpt_durable_restart(tmp_path, rng):
+    from repro_torch.ckpt import CheckpointStore
+    root = str(tmp_path / "ckpt")
+    cs = CheckpointStore(durable_root=root)
+    state = {"w": torch.from_numpy(
+                 rng.standard_normal((16, 16)).astype(np.float32)),
+             "b": torch.from_numpy(
+                 rng.standard_normal(16).astype(np.float32))}
+    cs.save(state, "train", step=1)
+    cs.sync()
+    del cs
+    cs2 = CheckpointStore(durable_root=root)
+    got = cs2.restore({"w": torch.zeros((16, 16)),
+                       "b": torch.zeros(16)}, "train")
+    assert torch.equal(got["w"], state["w"])
+    assert torch.equal(got["b"], state["b"])
+    assert cs2.history("train")[0][1]["step"] == 1
 
 
 def test_forkbase_durable_verified_restart_under_fphash(tmp_path, rng):

@@ -1,7 +1,7 @@
 """Observability layer of the port (repro_torch.obs): metrics, spans,
-events, exporters, and the tier and segment events of the durable stores
-— the JAX package's ``tests/test_obs.py``, less the cluster, GC and audit
-tests, which come with those slices of the port.
+events, exporters, the tier and segment events of the durable stores and
+the GC events — the JAX package's ``tests/test_obs.py``, less the cluster
+and audit tests, which come with those slices of the port.
 
 Every test resets the process-wide registry/journal FIRST and builds
 its stores AFTER the reset: ``REGISTRY.reset()`` drops the instrument
@@ -10,6 +10,7 @@ the reset would record into orphaned instruments.
 """
 import json
 
+import numpy as np
 import pytest
 
 from repro_torch import obs
@@ -251,6 +252,31 @@ def test_durable_engine_put_trace_has_tier_and_segment_layers(tmp_path):
 
 
 # ------------------------------------------------------------ exporters
+
+# ------------------------------------------------------------ GC events
+
+def test_gc_events_and_slice_pause_history():
+    from repro_torch.core import FBlob, ForkBase
+    db = ForkBase()
+    rng = np.random.default_rng(2)
+    for i in range(4):
+        db.put(f"k{i}", FBlob(rng.bytes(4096)))
+        db.put(f"k{i}", FBlob(rng.bytes(4096)))   # garbage: old versions
+    col = db.incremental_gc()
+    while col.active:
+        col.step(64)
+    kinds = obs.EVENTS.counts()
+    assert kinds.get("gc.begin", 0) >= 1
+    assert kinds.get("gc.phase", 0) >= 1
+    assert kinds.get("gc.done", 0) >= 1
+    snap = db.observe()
+    assert snap["gc"]["reports"], "GCReport history should be recorded"
+    pauses = snap["gc"]["slice_pauses"]
+    assert pauses and all({"phase", "epoch", "us"} <= set(p)
+                          for p in pauses)
+    assert "gc_slice_us" in snap["metrics"]["histograms"]
+    json.dumps(snap)                                # JSON-safe
+
 
 def test_prometheus_text_renders_all_instrument_kinds():
     obs.inc("reqs_total", 3, {"verb": "put"})

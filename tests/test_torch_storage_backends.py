@@ -5,9 +5,11 @@ shared put/get/has/delete/dedup/stats suite of the JAX package's
 the verified and tamper variants, the log replay and write-buffer tests,
 ``make_backend`` and the fphash dispatch.
 
-The cluster routing store and the GC tests of the reference come with the
-cluster and GC slices of the port.  Hypothesis properties run as seeded
-loops.
+The GC tests run through every stack too: a stop-the-world collection,
+a put landing mid-mark and a dedup put landing mid-sweep (the race the
+parked barrier lock closes).  The cluster routing store of the reference
+comes with the cluster slice of the port.  Hypothesis properties run as
+seeded loops.
 """
 import itertools
 
@@ -193,6 +195,28 @@ def test_iter_cids_is_sweep_inventory(backend, rng):
     assert set(backend.iter_cids()) == set(cids[4:])
 
 
+@all_backends
+def test_gc_collects_removed_branch_through_stack(backend, rng):
+    """Acceptance: two branches, remove one, collect; the store shrinks
+    and the surviving head reads back byte-identical — through every
+    backend stack."""
+    db = ForkBase(backend)
+    keep = rng.bytes(60_000)
+    db.put("k", FBlob(keep))
+    db.fork("k", "master", "scratch")
+    db.put("k", FBlob(rng.bytes(60_000)), "scratch")
+    n0 = len(backend)
+    phys0 = backend.stats.physical_bytes
+    db.remove("k", "scratch")
+    report = db.gc()
+    assert report.swept_chunks > 0
+    assert len(backend) < n0
+    assert 0 <= backend.stats.physical_bytes < phys0
+    assert db.get("k").blob().read() == keep
+    # idempotent: a second collect sweeps nothing
+    assert db.gc().swept_chunks == 0
+
+
 @pytest.mark.parametrize("backend", ["replicated"], indirect=True)
 def test_delete_removes_all_replicas(backend, rng):
     raw = encode_chunk(3, rng.bytes(900))
@@ -257,6 +281,84 @@ def test_put_listener_fires_with_batch_cids(backend, rng):
     backend.remove_put_listener(heard.append)
     backend.put(encode_chunk(3, rng.bytes(64)))
     assert heard[-1] == cids                        # detached: silent
+
+
+class _SpyLock:
+    """A context-manager lock that records whether it is held."""
+
+    def __init__(self):
+        self.held = False
+        self.entered = 0
+
+    def __enter__(self):
+        self.held = True
+        self.entered += 1
+        return self
+
+    def __exit__(self, *exc):
+        self.held = False
+
+
+@all_backends
+def test_put_many_holds_the_parked_barrier_lock(backend, rng):
+    """While a collection parks its lock on a store, one put batch —
+    store write and barrier notification — runs inside it; with none
+    parked the put takes no lock."""
+    assert backend._barrier_lock is None
+    lk = _SpyLock()
+    heard = []
+    backend.add_put_listener(lambda cids: heard.append(lk.held))
+    backend._barrier_lock = lk
+    backend.put_many(chunks(rng, n=3))
+    assert lk.entered == 1 and heard == [True] and not lk.held
+    backend._barrier_lock = None
+    backend.put_many(chunks(rng, n=3))
+    assert lk.entered == 1 and heard == [True, False]
+
+
+@all_backends
+def test_put_mid_mark_is_shaded_and_survives(backend, rng):
+    """A put landing mid-mark must gray its refs on every backend stack:
+    the new version survives the epoch even though it was not in the
+    root snapshot."""
+    from repro_torch.gc import GCPhase
+    db = ForkBase(backend)
+    keep = rng.bytes(60_000)
+    db.put("k1", FBlob(keep))
+    db.fork("k1", "master", "tmp")
+    db.put("k1", FBlob(rng.bytes(60_000)), "tmp")
+    db.remove("k1", "tmp")                          # garbage to collect
+    col = db.incremental_gc()
+    assert col.step(2) is GCPhase.MARK              # mark in flight
+    fresh = rng.bytes(60_000)
+    uid = db.put("k2", FBlob(fresh))                # put landing mid-mark
+    assert uid in col.marked                        # barrier grayed it
+    while col.step(16) is not GCPhase.DONE:
+        pass
+    assert col.report.swept_chunks > 0
+    assert col.report.barriered > 0
+    assert db.get("k1").blob().read() == keep
+    assert db.get("k2").blob().read() == fresh
+
+
+@all_backends
+def test_dedup_put_mid_sweep_rescues_condemned_chunks(backend, rng):
+    """A put landing mid-sweep that dedups against condemned chunks must
+    rescue them before their slice is deleted — on every stack."""
+    from repro_torch.gc import GCPhase
+    db = ForkBase(backend)
+    data = rng.bytes(60_000)
+    db.put("k", FBlob(data), "tmp")
+    db.remove("k", "tmp")                           # whole value condemned
+    col = db.incremental_gc()
+    while col.step(4) is GCPhase.MARK:
+        pass
+    assert col.phase is GCPhase.SWEEP               # frozen, nothing swept
+    uid = db.put("k", FBlob(data))                  # dedups against condemned
+    assert col.report.barriered > 0                 # rescued, not resurrected
+    while col.step(4) is not GCPhase.DONE:
+        pass
+    assert db.get("k", uid=uid).blob().read() == data
 
 
 # --------------------------------------------------- log: tombstones, compact
