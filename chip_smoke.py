@@ -4,6 +4,7 @@ NVIDIA GPU, built for an H100.
 
     python3 chip_smoke.py [--records N] [--map-records N] [--durable-records N]
                           [--ckpt-layers N] [--ckpt-breakdown]
+                          [--ledger-accounts N]
 
 Phases, in order; any failed check exits non-zero:
 
@@ -62,16 +63,37 @@ Phases, in order; any failed check exits non-zero:
    --ckpt-breakdown adds a mark timed alone before the GC (mark_s) and a
    save of step 0 into an in-memory store under torch.profiler
    (save_profile: device time of kernels and copies against the wall).
+6. The ledger path, the paper's blockchain application (§5.1) with fphash
+   cids: (a) ForkBaseLedger(ForkBase(), live=True) seeded with 500,000
+   accounts of 64 seeded bytes under the "kv" contract in one commit
+   (--ledger-accounts; 1,000,000 is live_bench.py's size), then 50
+   blocks of 200 writes to seeded random accounts; the last state root
+   against FMap(model) built directly with both kernels' plain versions,
+   block lineage proofs of heights 0, 25 and 49 and 1,024 flat
+   state proofs through a LightClient holding only the chain head, a
+   proof with one flipped byte rejected and an absence proof;
+   (b) attestation churn: 1,000 heads, then 20 rounds of 10 single-head
+   updates and one delta attestation, each root against the full rebuild
+   and every updated head's proof verified, with each path's launches;
+   (c) an archival ledger on a 3-way ReplicatedBackend (2,048 accounts, 10
+   blocks of 200 writes), 64 state proofs and an attested head refresh
+   through a LightClient, the engine audit and a replica audit of every
+   copy, clean, then with one copy on replica 1 overwritten: exactly that
+   finding.  The line "ledger path: {...}" gives each part's numbers and
+   launches.
 
 The line before the last is one JSON object with each kernel's launches on
-the main path, its time through its wrapper (ms), its kernel's device time
-alone (kernel_ms, from torch.profiler), its plain version's time and its
-bound; the last line is {"ok": true, "device": {...}}.  Needs no network.
-Exits non-zero, printing no result, when no GPU is available.
+the main path (and on phases 5 and 6), its time through its wrapper (ms),
+its kernel's device time alone (kernel_ms, from torch.profiler), its plain
+version's time and its bound; the last line is {"ok": true, "device":
+{...}}.  Needs no network.  Exits non-zero, printing no result, when no
+GPU is available.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -386,9 +408,10 @@ def main_path(ds: dict) -> dict:
     return out
 
 
-def plain_root(v1: bytes) -> bytes:
-    """The v1 root cid with both kernels' plain versions on the device."""
-    from repro_torch.core import ChunkStore, POSTree
+@contextlib.contextmanager
+def plain_kernels():
+    """fphash cids and boundary bitmaps by both kernels' plain versions on
+    the device (no kernel launches); sha256 and the kernels after."""
     from repro_torch.core import hashing
     from repro_torch.kernels import ops, ref
 
@@ -397,10 +420,18 @@ def plain_root(v1: bytes) -> bytes:
         lambda b: ops.hash_many_with(ref.fphash_many_ref, [bytes(b)])[0],
         lambda blobs: ops.hash_many_with(ref.fphash_many_ref, blobs))
     try:
-        return POSTree.build_bytes(ChunkStore(), v1).root_cid
+        yield
     finally:
         ops.use_kernel_chunker(True)
         hashing.use_sha256()
+
+
+def plain_root(v1: bytes) -> bytes:
+    """The v1 root cid with both kernels' plain versions on the device."""
+    from repro_torch.core import ChunkStore, POSTree
+
+    with plain_kernels():
+        return POSTree.build_bytes(ChunkStore(), v1).root_cid
 
 
 # ------------------------------------------------------------ phase 4
@@ -852,6 +883,315 @@ def checkpoint_path(dev, n_layers: int = TINYLLAMA_LAYERS,
     return out
 
 
+# ------------------------------------------------------------ phase 6
+
+# The ledger's sizes come from the repo's benchmarks of these subsystems:
+# 1M accounts (benchmarks/live_bench.py, n_keys), 64-byte values under the
+# "kv" contract and blocks of 200 writes over 2,048 archival accounts
+# (benchmarks/blockchain_ops.py:70-75), 1,024 state proofs
+# (benchmarks/proof_bench.py, N_PROOFS) and the attestation churn of
+# proof_bench.py's _attest_churn (1,000 heads, 20 rounds of 10 updates).
+# The live accounts are cut to 500,000 by default (--ledger-accounts):
+# at 1M the phase took 147-235 s on one H100, and its time grows with the
+# accounts (every block splice and every proof walks the whole map's
+# index on the host; PERF.md §4-5).
+LEDGER_ACCOUNTS = 500_000
+LEDGER_BLOCKS = 50
+BLOCK_WRITES = 200
+VALUE_BYTES = 64
+STATE_PROOFS = 1024
+STATE_LOADS = 16          # timed reloads of the state map's index
+ARCHIVE_ACCOUNTS = 2048
+ARCHIVE_BLOCKS = 10
+ARCHIVE_PROOFS = 64
+CHURN_HEADS, CHURN_UPDATES, CHURN_ROUNDS = 1000, 10, 20
+SECRET = b"chip-smoke-attestation-key"
+
+
+def seeded_blocks(led, model: dict, rng, accounts: int, blocks: int) -> list:
+    """``blocks`` blocks of BLOCK_WRITES writes to seeded random accounts;
+    returns each commit's milliseconds."""
+    ms = []
+    for _ in range(blocks):
+        picks = rng.integers(0, accounts, BLOCK_WRITES)
+        vals = rng.bytes(VALUE_BYTES * BLOCK_WRITES)
+        for w, j in enumerate(picks):
+            v = vals[VALUE_BYTES * w:VALUE_BYTES * (w + 1)]
+            led.write("kv", f"key{int(j)}", v)
+            model[f"kv/key{int(j)}".encode()] = v
+        t = time.perf_counter()
+        led.commit()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return ms
+
+
+def seed_accounts(led, model: dict, rng, accounts: int) -> float:
+    """``accounts`` accounts of VALUE_BYTES seeded bytes each, then one
+    commit; returns the seconds of the writes and the commit."""
+    vals = rng.bytes(VALUE_BYTES * accounts)
+    t = time.perf_counter()
+    for i in range(accounts):
+        v = vals[VALUE_BYTES * i:VALUE_BYTES * (i + 1)]
+        led.write("kv", f"key{i}", v)
+        model[f"kv/key{i}".encode()] = v
+    led.commit()
+    return time.perf_counter() - t
+
+
+def live_ledger(accounts: int, blocks: int, proofs: int, seed: int) -> dict:
+    """(a) A live-mode ledger: ``accounts`` seeded accounts, ``blocks``
+    blocks, the last state root against a direct build with the plain
+    kernels, block lineage and flat state proofs through a light client,
+    a forged proof and an absence proof."""
+    from repro_torch.apps.blockchain import (STATE_KEY, ForkBaseLedger,
+                                             LightClient)
+    from repro_torch.core import FMap, ForkBase, POSTree
+    from repro_torch.kernels import ops
+    from repro_torch.proof import InvalidProof, verify_member
+    from repro_torch.proof.membership import ABSENCE
+    from repro_torch.storage import MemoryBackend
+
+    rng = np.random.default_rng(seed)
+    out = {"accounts": accounts, "blocks": blocks}
+    led = ForkBaseLedger(ForkBase(), live=True)
+    model: dict[bytes, bytes] = {}
+    ops.reset_launches()
+    out["seed_s"] = seed_accounts(led, model, rng, accounts)
+    out["seed_fold_s"] = led._state.stats.fold_seconds
+    out["seed_folds"] = led._state.stats.folds
+    ms = seeded_blocks(led, model, rng, accounts, blocks)
+    out["block_ms_median"] = float(np.median(ms))
+    out["block_ms_max"] = max(ms)
+
+    root = led.db.get(STATE_KEY).obj.data
+    head = led.db.get("chain").uid
+    client = LightClient(head)
+    for h in (0, blocks // 2, blocks - 1):
+        try:
+            d = client.verify_block(led.prove_block(h), led.block_uid(h))
+        except InvalidProof as e:
+            fail(f"the light client rejects block {h}: {e}")
+        check(d == led.height - 1 - h, f"block {h} is {d} blocks from the "
+              f"head, not {led.height - 1 - h}")
+    picks = [f"key{int(j)}" for j in rng.integers(0, accounts, proofs)]
+    t = time.perf_counter()
+    flat = [led.prove_state_flat("kv", k) for k in picks]
+    out["prove_s"] = time.perf_counter() - t
+    # each flat proof reloads the state map's index from its root: that
+    # reload alone, to split the prover's time
+    obj = led.db.get(STATE_KEY).obj
+    t = time.perf_counter()
+    for _ in range(STATE_LOADS):
+        POSTree.from_root(led.db.store, obj.type, obj.data, led.db.params)
+    out["state_load_ms"] = (time.perf_counter() - t) * 1e3 / STATE_LOADS
+    t = time.perf_counter()
+    for p, k in zip(flat, picks):
+        try:
+            d, v = client.verify_state_flat(p, "kv", k)
+        except InvalidProof as e:
+            fail(f"the light client rejects the state proof of {k}: {e}")
+        check(d == 0 and v == model[f"kv/{k}".encode()],
+              f"the state proof of {k} gives {v!r} at distance {d}")
+    out["verify_s"] = time.perf_counter() - t
+    out["proofs"] = len(flat)
+    out["proof_bytes_mean"] = float(np.mean([p.size for p in flat]))
+    raw = flat[0].kv_entry
+    i = len(raw) // 2
+    forged = dataclasses.replace(
+        flat[0], kv_entry=raw[:i] + bytes([raw[i] ^ 1]) + raw[i + 1:])
+    try:
+        client.verify_state_flat(forged, "kv", picks[0])
+        fail("a state proof with a flipped byte verifies")
+    except InvalidProof:
+        pass
+    gone = b"kv/never-written"
+    try:
+        claim = verify_member(root, led.db.prove_absence(STATE_KEY,
+                                                         item_key=gone))
+    except InvalidProof as e:
+        fail(f"the absence proof does not verify: {e}")
+    check(claim.mode == ABSENCE and claim.key == gone,
+          f"the absence proof proves {claim}")
+    out["launches"] = ops.launches()
+
+    del led
+    with plain_kernels():
+        t = time.perf_counter()
+        want = FMap(model).commit(MemoryBackend())
+        out["plain_build_s"] = time.perf_counter() - t
+    check(root == want, "the live ledger's state root differs from the "
+          "direct build with the plain kernels")
+    out["roots_bit_identical"] = True
+    return out
+
+
+def attest_churn(heads: int, updates: int, rounds: int, seed: int) -> dict:
+    """(b) ``heads`` heads, then ``rounds`` rounds of ``updates``
+    single-head updates and one delta attestation, each against the full
+    rebuild; every updated head's proof verifies.  Also the mean time of
+    one Merkle node hash (one single-string fphash launch and its digest
+    back on the host) as attestation calls it."""
+    from repro_torch.core import FBlob, ForkBase
+    from repro_torch.kernels import ops
+    from repro_torch.proof import InvalidProof, attest_heads, verify_head
+    from repro_torch.proof.attest import node_hash
+    from repro_torch.storage import MemoryBackend
+
+    rng = np.random.default_rng(seed)
+    db = ForkBase(MemoryBackend())
+    keys = [b"key%06d" % i for i in range(heads)]
+    ops.reset_launches()
+    for i, key in enumerate(keys):
+        db.put(key, FBlob(b"v%d" % i))
+    out = {"heads": heads, "updates": updates, "rounds": rounds}
+    sums = {"delta_s": 0.0, "full_s": 0.0}
+    per = {f"{w}_{k}": 0 for w in ("delta", "full")
+           for k in ("fphash", "fphash_many")}
+    l0 = ops.launches()
+    t = time.perf_counter()
+    db.attest()
+    out["first_attest_ms"] = (time.perf_counter() - t) * 1e3
+    out["first_attest_fphash"] = ops.launches()["fphash"] - l0["fphash"]
+    version = 0
+    for _ in range(rounds):
+        picks = [keys[int(p)] for p in rng.integers(0, heads, updates)]
+        for key in picks:
+            version += 1
+            db.put(key, FBlob(b"u%d" % version))
+        for what in ("delta", "full"):
+            l0 = ops.launches()
+            t = time.perf_counter()
+            att = db.attest() if what == "delta" else attest_heads(
+                db.branches)
+            sums[f"{what}_s"] += time.perf_counter() - t
+            l1 = ops.launches()
+            for k in ("fphash", "fphash_many"):
+                per[f"{what}_{k}"] += l1[k] - l0[k]
+            if what == "delta":
+                delta = att
+        check(delta.root == att.root, "a delta attestation root differs "
+              "from the full rebuild")
+        for key in set(picks):
+            try:
+                got = verify_head(delta, db.prove_head(key))
+            except InvalidProof as e:
+                fail(f"the head proof of {key!r} does not verify: {e}")
+            check(got == (key, "master", db.branches.head(key, "master")),
+                  f"the head proof of {key!r} proves {got}")
+    out["delta_attest_ms"] = sums["delta_s"] / rounds * 1e3
+    out["full_attest_ms"] = sums["full_s"] / rounds * 1e3
+    out.update({f"{k}_per_attest": v / rounds for k, v in per.items()})
+    out["delta_stats"] = dataclasses.asdict(db._delta().stats)
+    out["launches"] = ops.launches()
+    a, b = bytes(32), bytes(range(32))
+    n = 2 * heads                 # the nodes of about two full rebuilds
+    t = time.perf_counter()
+    for _ in range(n):
+        a = node_hash(a, b)
+    out["node_hash_ms"] = (time.perf_counter() - t) / n * 1e3
+    return out
+
+
+def archival_ledger(accounts: int, blocks: int, proofs: int,
+                    seed: int) -> dict:
+    """(c) An archival ledger on a 3-way ReplicatedBackend: ``accounts``
+    seeded accounts and ``blocks`` blocks, state proofs and a head
+    refresh through a light client, then the engine audit and a full
+    replica audit, clean, and again after one copy of one chunk on
+    replica 1 is overwritten."""
+    from repro_torch.apps.blockchain import ForkBaseLedger, LightClient
+    from repro_torch.core import ForkBase
+    from repro_torch.kernels import ops
+    from repro_torch.proof import Auditor, InvalidProof
+    from repro_torch.storage import MemoryBackend, ReplicatedBackend
+
+    rng = np.random.default_rng(seed)
+    out = {"accounts": accounts, "blocks": blocks}
+    rb = ReplicatedBackend([MemoryBackend() for _ in range(3)], k=3)
+    led = ForkBaseLedger(ForkBase(rb))
+    model: dict[bytes, bytes] = {}
+    ops.reset_launches()
+    out["seed_s"] = seed_accounts(led, model, rng, accounts)
+    ms = seeded_blocks(led, model, rng, accounts, blocks)
+    out["block_ms_median"] = float(np.median(ms))
+    out["block_ms_max"] = max(ms)
+    head = led.db.get("chain").uid
+    client = LightClient(head)
+    picks = [f"key{int(j)}" for j in rng.integers(0, accounts, proofs)]
+    t = time.perf_counter()
+    for k in picks:
+        try:
+            d, v = client.verify_state(led.prove_state("kv", k), "kv", k)
+        except InvalidProof as e:
+            fail(f"the light client rejects the archival proof of {k}: {e}")
+        check(d == 0 and v == model[f"kv/{k}".encode()],
+              f"the archival proof of {k} gives {v!r} at distance {d}")
+    out["prove_verify_ms"] = (time.perf_counter() - t) / len(picks) * 1e3
+    att = led.attest(secret=SECRET)
+    try:
+        got = client.refresh_head(att, led.prove_chain_head(), secret=SECRET)
+    except InvalidProof as e:
+        fail(f"the light client rejects the attested chain head: {e}")
+    check(got == head, "the attested chain head is not the ledger's head")
+    out["launches"] = ops.launches()
+
+    ops.reset_launches()
+    t = time.perf_counter()
+    rep = led.db.audit(sample=64, secret=SECRET)
+    out["engine_audit_ms"] = (time.perf_counter() - t) * 1e3
+    check(rep.ok, f"the engine audit has findings: {rep}")
+    out["engine_audit"] = {"heads": rep.heads_checked,
+                           "proofs": rep.proofs_verified}
+    t = time.perf_counter()
+    rep = Auditor(sample=len(rb)).audit_replicas(rb)
+    out["replica_audit_ms"] = (time.perf_counter() - t) * 1e3
+    check(rep.ok and rep.chunks_checked == len(rb)
+          and rep.copies_checked == 3 * len(rb),
+          f"the replica audit is not clean over every copy: {rep}")
+    out["audit_chunks"] = rep.chunks_checked
+    out["audit_copies"] = rep.copies_checked
+    cids = sorted(rb.stores[1].iter_cids())
+    cid = cids[int(rng.integers(0, len(cids)))]
+    raw = rb.stores[1]._data[cid]
+    rb.stores[1]._data[cid] = raw[:-1] + bytes([raw[-1] ^ 0xFF])
+    rep = Auditor(sample=len(rb)).audit_replicas(rb)
+    check([(f.node, f.kind, f.cid) for f in rep.findings]
+          == [("replica1", "corrupt", cid)],
+          f"the audit of one corrupted copy reports {rep}")
+    out["audit_launches"] = ops.launches()
+    return out
+
+
+def ledger_path(dev, accounts: int = LEDGER_ACCOUNTS,
+                blocks: int = LEDGER_BLOCKS, proofs: int = STATE_PROOFS,
+                archive_accounts: int = ARCHIVE_ACCOUNTS,
+                archive_blocks: int = ARCHIVE_BLOCKS,
+                archive_proofs: int = ARCHIVE_PROOFS,
+                churn: tuple = (CHURN_HEADS, CHURN_UPDATES, CHURN_ROUNDS)
+                ) -> dict:
+    """Phase 6 on ``dev`` with fphash cids: (a) the live ledger, (b)
+    attestation churn, (c) the archival ledger and its replica audit.
+    ``launches`` gives each part's launches per kernel."""
+    from repro_torch.core import hashing
+
+    try:
+        hashing.use_fphash()
+        live = live_ledger(accounts, blocks, proofs, seed=0)
+        synchronize(dev)
+        hashing.use_fphash()      # the plain build of (a) restored sha256
+        churned = attest_churn(*churn, seed=1)
+        arch = archival_ledger(archive_accounts, archive_blocks,
+                               archive_proofs, seed=2)
+        synchronize(dev)
+    finally:
+        hashing.use_sha256()
+    return {"live": live, "churn": churned, "archival": arch,
+            "launches": {"live": live.pop("launches"),
+                         "churn": churned.pop("launches"),
+                         "archival": arch.pop("launches"),
+                         "audit": arch.pop("audit_launches")}}
+
+
 # ------------------------------------------------------------ breakdown
 
 def profile_put(v1: bytes) -> dict:
@@ -1022,6 +1362,9 @@ def main() -> int:
     ap.add_argument("--ckpt-breakdown", action="store_true",
                     help="phase 5 also times a mark alone before the GC "
                          "and profiles a save of step 0 (about 20 s)")
+    ap.add_argument("--ledger-accounts", type=int, default=LEDGER_ACCOUNTS,
+                    help="accounts of phase 6's live ledger; 1000000 runs "
+                         "live_bench.py's size (about 150-240 s)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs a GPU",
@@ -1137,6 +1480,30 @@ def main() -> int:
         "launches": cp["launches"],
         "controller_launches": cp["controller_launches"],
         **{k: cp[k] for k in ("mark_s", "save_profile") if k in cp}}))
+
+    t = time.perf_counter()
+    lp = ledger_path(dev, args.ledger_accounts)
+    print(f"phase 6 (ledger path): {time.perf_counter() - t:.1f} s")
+    ledger = {k: sum(part[k] for part in lp["launches"].values())
+              for k in SOURCES}
+    check(all(v > 0 for v in ledger.values()),
+          f"a kernel never launched on the ledger path: {lp['launches']}")
+    live, churn, arch = lp["live"], lp["churn"], lp["archival"]
+    print("ledger path: " + json.dumps({
+        "accounts": live["accounts"], "blocks": live["blocks"],
+        "seed_s": live["seed_s"], "seed_fold_s": live["seed_fold_s"],
+        "seed_folds": live["seed_folds"],
+        "block_ms_median": live["block_ms_median"],
+        "block_ms_max": live["block_ms_max"],
+        "roots_bit_identical": live["roots_bit_identical"],
+        "plain_build_s": live["plain_build_s"], "proofs": live["proofs"],
+        "proofs_per_s": live["proofs"] / live["prove_s"],
+        "state_load_ms": live["state_load_ms"],
+        "proof_bytes_mean": live["proof_bytes_mean"],
+        "verify_us": live["verify_s"] / live["proofs"] * 1e6,
+        "attest": churn,
+        "archival": arch,
+        "launches": lp["launches"]}))
     kernels = []
     for row in timed:
         src, replaces = SOURCES[row["name"]]
@@ -1148,6 +1515,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shape": row["shape"],
             "ckpt_launches": both[row["name"]],
+            "ledger_launches": ledger[row["name"]],
             "kernel_ms": row["kernel_ms"],
             "registers": ptx[row["name"]]["registers"]})
     print(json.dumps({"kernels": kernels}))

@@ -194,7 +194,15 @@ class CheckpointStore:
     def save(self, state, branch: str, *, step: int,
              extra: dict | None = None) -> bytes:
         """Commit ``state`` (a pytree of tensors) as one version on
-        ``branch``.  Returns the checkpoint uid."""
+        ``branch``.  Returns the checkpoint uid.
+
+        A checkpoint save is an epoch boundary for the engine's live
+        tables (repro_torch.live): any flat-path deltas are folded into
+        their POS-Trees first, so the checkpoint never lands on a store
+        whose durable state lags the served state."""
+        if getattr(self.db, "_live", None):
+            self.db.commit_epoch(context=json.dumps(
+                {"ckpt_step": step}).encode())
         head = self.db.get(self.key, branch)
         manifest = (head.map() if head is not None else FMap())
         self._commit_leaves(state, manifest)
@@ -338,9 +346,8 @@ class CheckpointStore:
 
     def verify(self, uid: bytes, ancestor: bytes) -> bool:
         """Tamper-evident lineage check: does ``uid`` derive from
-        ``ancestor``?  (model provenance; ``ForkBase.verify_lineage``,
-        which raises ``ConfigError`` until the proof subsystem is
-        ported)."""
+        ``ancestor``?  (model provenance; ``ForkBase.verify_lineage``
+        walks a lineage proof of the bases chain)."""
         return self.db.verify_lineage(uid, ancestor)
 
     def racing_heads(self):

@@ -1,8 +1,7 @@
 """ForkBase connector — the public API (paper Table 1 + guarded Put §4.5.1
 + Diff §3.2) with chunk GC (stop-the-world and incremental), retention
-(``truncate_history``) and ``observe()``; proofs and live tables come
-with their slices of the port (``verify_lineage`` raises ``ConfigError``
-until then).
+(``truncate_history``), ``observe()``, the proof verbs (prove / attest /
+audit) and the live tier (``live`` / ``commit_epoch``).
 
 Both fork semantics are first-class:
   * Fork-on-Demand  (FoD): named (tagged) branches, explicit Fork/Merge;
@@ -21,16 +20,17 @@ from typing import Iterable, Mapping
 
 from . import chunk as ck
 from . import merge as mg
-from .branch import DEFAULT_BRANCH, BranchTable, GuardFailed, NoSuchRef
+from .branch import (DEFAULT_BRANCH, BranchTable, GuardFailed,
+                     NoSuchRef)
 from .chunker import ChunkParams, DEFAULT_PARAMS
 from .chunkstore import ChunkStore
 from .. import obs
-from ..errors import ConfigError
 from ..storage import StorageBackend, WriteBuffer
-from .fobject import FObject, load_fobject, make_fobject
+from .fobject import (CHUNKABLE_TYPES, FObject, load_fobject, make_fobject)
 from .postree import POSTree
 from .types import (CHUNKABLE_CLASSES, FBlob, FInt, FList, FMap, FSet,
                     FString, FTuple, PRIMITIVE_CLASSES)
+
 
 class TypeNotMatch(Exception):
     pass
@@ -129,15 +129,28 @@ class ForkBase:
         from ..gc.incremental import EpochFence
         from ..gc.pins import PinSet
         self.pins = PinSet(on_pin=self._gc_root_barrier)
-        # attestation/GC epoch handshake: collections root pins still in
-        # the grace window (heads_fn backs the fence's bloom spill path:
-        # pins past the memory cap are recovered by filtering current
-        # heads)
+        # attestation/GC epoch handshake: attest() pins the heads it
+        # commits to; collections root pins still in the grace window
+        # (heads_fn backs the fence's bloom spill path: pins past the
+        # memory cap are recovered by filtering current heads)
         self.gc_fence = EpochFence()
         self.gc_fence.heads_fn = self.branches.all_heads
-        # live tables (the flat-state fast path) come with their slice of
-        # the port; observe() reports their aggregates, zero until then
+        # live tables (flat-state fast path, repro_torch.live): one per
+        # (key, branch) head, folded into the archive at epoch
+        # boundaries — see live() / commit_epoch()
         self._live: dict = {}
+        # attest pin delta: keys whose heads moved since the last
+        # attest; the first attest of a fence epoch pins the full head
+        # baseline, subsequent ones pin only these keys' heads — O(k)
+        self._attest_dirty: set[bytes] = set()
+        self._attest_pin_epoch: int | None = None
+        self.branches.add_listener(self._on_head_mutation)
+        # incremental attestation state (proof.delta), built lazily on
+        # the first attest()/prove_head()
+        self._delta_attestor = None
+        # per-root audit-path cache for prove_member/prove_absence
+        from ..proof.membership import ProofCache
+        self.proof_cache = ProofCache()
         # application-level link extractors (gc.mark ref_hooks): layers
         # that embed cids inside opaque values (ckpt manifests) register
         # here so gc() can trace through them
@@ -333,6 +346,71 @@ class ForkBase:
                 out[i] = ValueHandle(self, FObject.deserialize(raw, uid))
         return out
 
+    # ------------------------------------------------- live fast path
+    def _on_head_mutation(self, key: bytes) -> None:
+        """Branch-table listener: feeds the attest pin delta and marks
+        this key's live tables stale (an external put / merge / fork
+        moved a head under them)."""
+        key = bytes(key)
+        self._attest_dirty.add(key)
+        if self._live:
+            for (k, _b), t in self._live.items():
+                if k == key:
+                    t._mark_stale()
+
+    def live(self, key: bytes, branch: str | None = None, *, policy=None):
+        """Flat-state fast path (repro_torch.live): a per-(key, branch)
+        ``LiveTable`` absorbing puts and serving gets in O(1), folded
+        into the POS-Tree archive at epoch boundaries (``fold()`` /
+        ``commit_epoch()`` / the table's EpochPolicy thresholds).
+        Repeated calls return the same table.  Direct ``put``s on the
+        same (key, branch) stay legal: the table revalidates against
+        the moved head and its dirty overlay reapplies on top at the
+        next fold (last-writer-wins, as two successive puts would)."""
+        from ..live.table import LiveTable
+        key = _k(key)
+        branch = branch or DEFAULT_BRANCH
+        t = self._live.get((key, branch))
+        if t is None:
+            t = (LiveTable(self, key, branch, policy=policy)
+                 if policy is not None else LiveTable(self, key, branch))
+            self._live[(key, branch)] = t
+        return t
+
+    def commit_epoch(self, context: bytes = b"", *, attest: bool = False,
+                     secret: bytes | None = None):
+        """Epoch boundary: fold every dirty live table into the archive
+        (one batched Put per table) and publish the folded roots under
+        the EpochFence handshake — each new head is pinned at the
+        current collection epoch and forwarded to in-flight collections
+        exactly like an attested head, so no sweep can touch a chunk a
+        fold just referenced before the fold's proofs are servable.
+        With ``attest=True`` the epoch closes with a delta attestation
+        committing to the folded heads.  Returns a live.EpochReport."""
+        from ..live.table import EpochReport
+        rep = EpochReport()
+        for t in list(self._live.values()):
+            if t.dirty_count:
+                rep.folds.append(t.fold(context=context))
+        folded = rep.folded_uids
+        if folded:
+            cluster = getattr(self.store, "cluster", None)
+            fence = (cluster.gc_fence if cluster is not None
+                     else self.gc_fence)
+            fence.pin(folded)
+            self._gc_attest_fence(folded)
+        if attest:
+            rep.attestation = self.attest(context=context, secret=secret)
+        return rep
+
+    def _live_fold_key(self, key: bytes) -> None:
+        """Fork/merge of a dirty head folds first: the archive must hold
+        the state the new branch (or the merge input) is derived from."""
+        if self._live:
+            for (k, _b), t in list(self._live.items()):
+                if k == key and t.dirty_count:
+                    t.fold()
+
     # ----------------------------------------------------------- views
     def list_keys(self) -> list[bytes]:                      # M8
         return self.branches.keys()
@@ -347,6 +425,7 @@ class ForkBase:
     def fork(self, key: bytes, ref: str | bytes, new_branch: str) -> None:
         """M11 (from branch) / M12 (from uid)."""
         key = _k(key)
+        self._live_fold_key(key)      # fork of a dirty head folds first
         uid = (self.branches.head(key, ref) if isinstance(ref, str)
                else bytes(ref))
         if uid is None or (not isinstance(ref, str)
@@ -358,10 +437,19 @@ class ForkBase:
         self.branches.fork(key, new_branch, uid)
 
     def rename(self, key: bytes, old: str, new: str) -> None:   # M13
-        self.branches.rename(_k(key), old, new)
+        key = _k(key)
+        self.branches.rename(key, old, new)
+        t = self._live.pop((key, old), None)
+        if t is not None:             # live table follows its branch name
+            t.branch = new
+            self._live[(key, new)] = t
 
     def remove(self, key: bytes, branch: str) -> None:          # M14
-        self.branches.remove(_k(key), branch)
+        key = _k(key)
+        self.branches.remove(key, branch)
+        # the branch's unfolded live delta dies with the branch, exactly
+        # like its unswept archive chunks
+        self._live.pop((key, branch), None)
 
     # ------------------------------------------------------- durability
     def sync(self) -> None:
@@ -385,6 +473,10 @@ class ForkBase:
         JSON-safe — ``json.dumps(db.observe())`` round-trips."""
         live = {"tables": len(self._live), "dirty_keys": 0, "folds": 0,
                 "fold_seconds": 0.0}
+        for t in self._live.values():
+            live["dirty_keys"] += t.dirty_count
+            live["folds"] += t.stats.folds
+            live["fold_seconds"] += t.stats.fold_seconds
         extra = {"engine": {
             "keys": len(self.branches.keys()),
             "pins": len(self.pins.uids()),
@@ -564,6 +656,7 @@ class ForkBase:
         """M5 Merge(key, tgt_branch, ref_branch); M6 Merge(key, tgt_branch,
         ref_uid); M7 Merge(key, uid1, uid2, ...) for untagged heads."""
         key = _k(key)
+        self._live_fold_key(key)      # merge inputs come from the archive
         if isinstance(target, str):          # M5 / M6
             tgt_uid = self.branches.head(key, target)
             if tgt_uid is None:
@@ -637,11 +730,158 @@ class ForkBase:
     # ----------------------------------------------------- verification
     def verify_lineage(self, uid: bytes, ancestor: bytes,
                        max_depth: int = 1 << 30) -> bool:
-        """Tamper-evidence check (§3.2): is ``ancestor`` in uid's
-        history?  It walks a lineage proof, and the proof subsystem is
-        not ported yet, so this raises ``ConfigError``."""
-        raise ConfigError("ForkBase.verify_lineage needs the proof "
-                          "subsystem, which is not ported yet")
+        """Tamper-evidence check (§3.2): is `ancestor` in uid's history?
+        Walking hashes re-verifies integrity chunk by chunk when the store
+        runs with verify=True."""
+        from ..proof.lineage import lineage_path
+        return lineage_path(self.store, uid, ancestor,
+                            max_depth=max_depth) is not None
+
+    # --------------------------------------------------- proof subsystem
+    # Prover-side verbs: each emits a self-contained proof an external
+    # verifier checks with repro_torch.proof's stateless verify_* functions,
+    # holding only a trusted root cid / head uid / attestation.
+
+    def prove_lineage(self, uid: bytes, ancestor: bytes):
+        """Meta-chunk hash chain showing ``ancestor`` in uid's history
+        (verify with ``proof.verify_lineage(uid, ancestor, proof)``)."""
+        from ..proof.lineage import prove_lineage
+        return prove_lineage(self.store, uid, ancestor)
+
+    def prove_version(self, uid: bytes) -> bytes:
+        """The raw meta chunk binding ``uid`` to its version record —
+        the bridge from a trusted uid to the value's tree root cid
+        (verify with ``proof.verify_version(uid, raw)``)."""
+        return self.store.get(uid)
+
+    def _tree_of(self, obj: FObject) -> POSTree:
+        if obj.type not in CHUNKABLE_TYPES:
+            raise TypeNotMatch(obj.type_name())
+        return POSTree.from_root(self.store, obj.type, obj.data,
+                                 self.params)
+
+    def prove_member(self, key: bytes, branch: str | None = None, *,
+                     uid: bytes | None = None, pos: int | None = None,
+                     item_key: bytes | None = None):
+        """Membership proof for one element of a chunkable value —
+        by position (any kind) or by key (Set/Map).  Anchored on the
+        value's tree root cid = the ``data`` field of its (provable)
+        meta chunk; verify with ``proof.verify_member(root, proof)``.
+        Hot paths are served from the per-root proof cache: roots are
+        content-addressed, so a cached audit path can never go stale —
+        a mutated value has a new root and misses."""
+        from ..proof.membership import prove_member
+        h = self.get(key, branch, uid=uid)
+        if h is None:
+            raise NoSuchRef(branch)
+        req = ("pos", pos) if pos is not None else ("key", item_key)
+        return self._cached_proof(
+            h.obj, req,
+            lambda: prove_member(self._tree_of(h.obj), pos=pos,
+                                 key=item_key))
+
+    def prove_absence(self, key: bytes, branch: str | None = None, *,
+                      uid: bytes | None = None,
+                      item_key: bytes = b""):
+        """Negative membership proof (sorted kinds), cached per root
+        like ``prove_member``."""
+        from ..proof.membership import prove_absence
+        h = self.get(key, branch, uid=uid)
+        if h is None:
+            raise NoSuchRef(branch)
+        return self._cached_proof(
+            h.obj, ("absent", item_key),
+            lambda: prove_absence(self._tree_of(h.obj), item_key))
+
+    def _cached_proof(self, obj, req, build):
+        """Per-root proof-cache plumbing shared by prove_member and
+        prove_absence (the root is the value's content-addressed tree
+        root, so cached paths can never go stale)."""
+        root = bytes(obj.data)
+        cached = self.proof_cache.lookup(root, req)
+        if cached is not None:
+            return cached
+        proof = build()
+        self.proof_cache.store(root, req, proof)
+        return proof
+
+    def _delta(self):
+        from ..proof.delta import DeltaAttestor
+        if self._delta_attestor is None:
+            self._delta_attestor = DeltaAttestor(self.branches)
+        return self._delta_attestor
+
+    def attest(self, context: bytes = b"",
+               secret: bytes | None = None):
+        """Head attestation: a Merkle commitment (optionally HMAC-signed)
+        to every branch head this engine serves — the light client's
+        trust anchor.  Pair with ``prove_head`` / ``proof.verify_head``.
+
+        Incremental: a persistent Merkle tree over the head entries is
+        maintained through branch-table mutation hooks, so an attest
+        after k head updates re-hashes O(k log heads) leaves instead of
+        rebuilding all of them (proof.delta; first use falls back to one
+        full build).  The attestation context carries the GC collector
+        epoch, and the committed heads are pinned with the epoch fence:
+        proofs against this attestation stay servable until the second
+        collection after now begins (gc.EpochFence handshake).
+
+        The pin path is O(k log n) too: the FIRST attest of each fence
+        epoch pins the full head baseline; every later attest in the
+        same epoch pins only the heads of keys mutated since (the
+        baseline pins already cover the unchanged ones at this epoch).
+        A collection advancing the fence epoch resets the baseline."""
+        from ..proof.delta import pack_epoch
+        cluster = getattr(self.store, "cluster", None)
+        fence = cluster.gc_fence if cluster is not None else self.gc_fence
+        if self._attest_pin_epoch != fence.epoch:
+            heads = self.branches.all_heads()     # epoch baseline
+            self._attest_pin_epoch = fence.epoch
+        else:                                     # delta: O(dirty keys)
+            heads = set()
+            for k in self._attest_dirty:
+                heads |= self.branches.heads_of(k)
+        self._attest_dirty.clear()
+        epoch = fence.pin(heads)
+        self._gc_attest_fence(heads)
+        return self._delta().attest(context=pack_epoch(epoch, context),
+                                    secret=secret)
+
+    def _gc_attest_fence(self, uids) -> None:
+        """Forward freshly attested heads to every in-flight incremental
+        collection: a sweep slice must not delete chunks beneath a head
+        committed by an attestation issued this epoch."""
+        if not self.gc_collectors:
+            return
+        self.gc_collectors = [c for c in self.gc_collectors if c.active]
+        for c in self.gc_collectors:
+            c.attest_fence(uids)
+
+    def prove_head(self, key: bytes, branch: str | None = None, *,
+                   uid: bytes | None = None):
+        """Audit path showing one head is committed by ``attest()``.
+        ``branch`` defaults to master (like get); pass ``uid`` for an
+        untagged fork-on-conflict head.  Served off the resident delta
+        attestation tree: O(log heads) per proof, no re-hashing."""
+        from ..proof.attest import UB_TAG, encode_entry
+        key = _k(key)
+        if branch is None and uid is None:
+            branch = DEFAULT_BRANCH
+        if branch is None:
+            entry = encode_entry(key, UB_TAG, uid)
+        else:
+            head = self.branches.head(key, branch)
+            if head is None:
+                raise KeyError(branch)
+            entry = encode_entry(key, branch, head)
+        return self._delta().prove(entry)
+
+    def audit(self, sample: int = 64, seed: int = 0,
+              secret: bytes | None = None):
+        """Self-audit through the stateless verifiers (proof.Auditor)."""
+        from ..proof.audit import Auditor
+        return Auditor(sample=sample, seed=seed).audit_engine(
+            self, secret=secret)
 
 
 def _k(key) -> bytes:

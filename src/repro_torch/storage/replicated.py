@@ -115,10 +115,9 @@ class ReplicatedBackend(BackendBase):
     def audit(self, sample: int = 64, seed: int = 0):
         """Sampled cross-replica tamper audit (proof subsystem): every
         ring copy of each sampled cid must exist and hash back to the
-        cid; returns an ``AuditReport`` naming offending replicas.  The
-        proof subsystem is not ported yet, so this raises ``ConfigError``."""
-        raise ConfigError("ReplicatedBackend.audit needs the proof "
-                          "subsystem, which is not ported yet")
+        cid; returns an ``AuditReport`` naming offending replicas."""
+        from ..proof import Auditor
+        return Auditor(sample=sample, seed=seed).audit_replicas(self)
 
     def __len__(self) -> int:
         return len(self._known)

@@ -4,8 +4,7 @@ package's ``tests/test_train_runtime.py`` (failure recovery, multiple
 failures, fork and lineage, racing pods, placement-agnostic restore), on a
 tiny torch model — a token embedding and a two-layer MLP trained by a
 deterministic SGD step — because the reference's fixture builds a JAX
-train step.  ``CheckpointStore.verify`` raises ``ConfigError`` until the
-proof subsystem is ported.
+train step.  ``CheckpointStore.verify`` walks a lineage proof.
 
 Also here: the pytree flattening that names the leaves, the dtype table
 (0-d, empty, bool and bfloat16 leaves) and the placement arguments of
@@ -144,8 +143,7 @@ def test_ckpt_fork_and_lineage(setup):
         assert torch.equal(x, y)
     hist = ck.history("main")
     assert [h[1]["step"] for h in hist] == [1, 0]
-    with pytest.raises(ConfigError):      # lineage proofs: not ported yet
-        ck.verify(u1, hist[-1][0])
+    assert ck.verify(u1, hist[-1][0])
 
 
 def test_foc_racing_pods(setup):

@@ -18,6 +18,8 @@ handed to the port as torch tensors (bf16 through an int16 view).
   in the middle of the mark.
 * ``prune`` with the same policy keeps the same uids and reports the same
   collection.
+* A save folds the engine's dirty live tables first, as the reference's
+  does: the same folded head, under the save's ``ckpt_step`` context.
 
 The GC and prune workloads run on the states' ``params`` and
 ``opt/step`` (the f32 optimizer moments add bytes, not cases), are built
@@ -29,6 +31,7 @@ one restores it in ``finally``.
 import collections
 import contextlib
 import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -193,6 +196,34 @@ def manifest_bytes(db, uid) -> tuple[bytes, list]:
 
 
 # ------------------------------------------------------------ save parity
+
+@pytest.mark.parametrize("cid", ["sha256", "fphash"])
+def test_save_folds_dirty_live_tables_first(cid):
+    """A save is an epoch boundary: a live table written since its last
+    fold is folded, under the save's ``ckpt_step`` context, before the
+    checkpoint lands.  The folded head and the checkpoint uid are the
+    reference's."""
+    leaf = np.arange(48, dtype=np.float32).reshape(6, 8)
+    got = {}
+    with cid_hash(cid):
+        for pkg, db, cs_cls, state in (
+                ("reference", RefForkBase(RefMemoryBackend()),
+                 RefCheckpointStore, {"w": leaf}),
+                ("port", ForkBase(MemoryBackend()), CheckpointStore,
+                 {"w": to_torch(leaf)})):
+            table = db.live(b"accounts")
+            for i in range(40):
+                table.put(f"k{i:03d}".encode(), f"v{i}".encode() * 4)
+            uid = cs_cls(db).save(state, "run", step=7)
+            head = db.get(b"accounts")
+            got[pkg] = (table.dirty_count, head.uid, head.obj.context,
+                        bytes(head.map().get(b"k039")), uid)
+    dirty, _, context, value, _ = got["port"]
+    assert dirty == 0
+    assert context == json.dumps({"ckpt_step": 7}).encode()
+    assert value == b"v39" * 4
+    assert got["port"] == got["reference"]
+
 
 @pytest.mark.parametrize("cid", ["sha256", "fphash"])
 def test_checkpoint_uids_and_manifests_are_the_reference_s(states, cid):

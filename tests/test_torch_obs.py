@@ -1,7 +1,8 @@
 """Observability layer of the port (repro_torch.obs): metrics, spans,
 events, exporters, the tier and segment events of the durable stores and
 the GC events — the JAX package's ``tests/test_obs.py``, less the cluster
-and audit tests, which come with those slices of the port.
+tests (the audit-daemon events test among them: it builds a ``Cluster``),
+which come with the cluster slice of the port.
 
 Every test resets the process-wide registry/journal FIRST and builds
 its stores AFTER the reset: ``REGISTRY.reset()`` drops the instrument

@@ -777,9 +777,17 @@ def test_replication_factor_and_failover(backend, rng):
 
 
 @pytest.mark.parametrize("backend", ["replicated"], indirect=True)
-def test_replicated_audit_waits_for_the_proof_slice(backend):
-    with pytest.raises(ConfigError, match="not ported yet"):
-        backend.audit()
+def test_replicated_audit_waits_for_the_proof_slice(backend, rng):
+    """The proof slice has landed: the replica audit runs, is clean on
+    intact copies and names the replica holding a corrupted one."""
+    cid = backend.put(encode_chunk(3, rng.bytes(1500)))
+    assert backend.audit(sample=10_000).ok
+    victim = next(i for i, s in enumerate(backend.stores) if s.has(cid))
+    raw = backend.stores[victim]._data[cid]
+    backend.stores[victim]._data[cid] = raw[:-1] + bytes([raw[-1] ^ 0xFF])
+    rep = backend.audit(sample=10_000)
+    assert [(f.node, f.kind, f.cid) for f in rep.findings] == \
+        [(f"replica{victim}", "corrupt", cid)]
 
 
 @pytest.mark.parametrize("backend", ["sharded"], indirect=True)
