@@ -4,7 +4,7 @@ NVIDIA GPU, built for an H100.
 
     python3 chip_smoke.py [--records N] [--map-records N] [--durable-records N]
                           [--ckpt-layers N] [--ckpt-breakdown]
-                          [--ledger-accounts N]
+                          [--ledger-accounts N] [--skew-edits N]
 
 Phases, in order; any failed check exits non-zero:
 
@@ -81,9 +81,31 @@ Phases, in order; any failed check exits non-zero:
    copy, clean, then with one copy on replica 1 overwritten: exactly that
    finding.  The line "ledger path: {...}" gives each part's numbers and
    launches.
+7. The cluster path, ForkBase's distributed deployment (§4.1, §4.6) with
+   fphash cids: (c) a threaded ClusterRuntime with its MaintenanceDaemon
+   on a fresh Cluster(4), started before any put: 8 writers put 250 values
+   of 1 KB each over 8 keys of their own, node 0 is quarantined once a
+   quarter of the puts are done, then rereplicate(), a placement audit and
+   a GC; every head is its writer's last put and reads back, node 0 ends
+   empty; and per-request against coalesced puts (96 puts, 4 nodes, the
+   same uids); (a) phase 3's dataset, v1, v2 and the fork, in Cluster(4,
+   "2LP"), each read back, with phase 3's uids, v2's new bytes under 5%
+   and the storage distribution's max/min under 1.10, node 1 quarantined
+   and re-replicated whole (v1 read back again), and v1 in
+   Cluster(4, "1LP") all on the key's home node; (b) Fig. 15: 10,000
+   (--skew-edits) 8 KB values to 8 zipf(1.5)-hot pages, a branch each, on
+   16 servlets in each mode, 2LP's coefficient of variation under 1LP's
+   and under 0.10; (d) phase 4's dataset's v1 in Cluster(4,
+   durable_root=<a fresh temporary directory>, verify=True), sync, close,
+   a reopen with equal heads and index, v1 read back, phase 4's uid, an
+   attestation and an audit clean, and after one data chunk on node 2 is
+   overwritten an audit of every placement naming node 2 alone.  The
+   kernels are held against their plain versions at the shapes the phase
+   adds; the line "cluster path: {...}" gives each part's numbers and
+   launches.
 
 The line before the last is one JSON object with each kernel's launches on
-the main path (and on phases 5 and 6), its time through its wrapper (ms),
+the main path (and on phases 5, 6 and 7), its time through its wrapper (ms),
 its kernel's device time alone (kernel_ms, from torch.profiler), its plain
 version's time and its bound; the last line is {"ok": true, "device":
 {...}}.  Needs no network.  Exits non-zero, printing no result, when no
@@ -436,24 +458,27 @@ def plain_root(v1: bytes) -> bytes:
 
 # ------------------------------------------------------------ phase 4
 
-def put_versions(db, ds: dict) -> dict:
+def put_versions(db, ds: dict, stored=None) -> dict:
     """Put v1, v2 (the edits) and the fork's version (v2 and the tail, on
-    branch dev) of dataset ``ds`` into engine ``db``; returns their uids,
-    the two puts' seconds and v2's new physical bytes."""
+    branch dev) of dataset ``ds`` into engine or cluster ``db``; returns
+    their uids, the two puts' seconds and v2's new bytes as ``stored()``
+    counts them (the engine store's physical bytes by default)."""
     from repro_torch.core import FBlob
 
+    if stored is None:
+        stored = lambda: db.store.stats.physical_bytes  # noqa: E731
     out = {}
     t = time.perf_counter()
     uid1 = db.put("dataset", FBlob(ds["v1"]))
     out["put_s"] = time.perf_counter() - t
-    phys1 = db.store.stats.physical_bytes
+    phys1 = stored()
     b = db.get("dataset").blob()
     for lo, n, new in ds["edits"]:
         b.replace(lo, n, new)
     t = time.perf_counter()
     uid2 = db.put("dataset", b)
     out["put_v2_s"] = time.perf_counter() - t
-    out["v2_new_bytes"] = db.store.stats.physical_bytes - phys1
+    out["v2_new_bytes"] = stored() - phys1
     db.fork("dataset", "master", "dev")
     b = db.get("dataset", "dev").blob()
     b.append(ds["tail"])
@@ -1192,6 +1217,416 @@ def ledger_path(dev, accounts: int = LEDGER_ACCOUNTS,
                          "audit": arch.pop("audit_launches")}}
 
 
+# ------------------------------------------------------------ phase 7
+
+CLUSTER_NODES = 4
+MAX_BALANCE = 1.10        # max / min of a 2LP storage distribution
+SKEW_NODES = 16           # Fig. 15, benchmarks/wiki_bench.py:90-101
+SKEW_PAGES = 8
+SKEW_VALUE_BYTES = 8192
+SKEW_EDITS = 10_000       # per mode; wiki_bench.py puts 400
+MAX_SKEW_CV = 0.10
+RUNTIME_WRITERS = 8       # tests/test_runtime.py's _stress, scaled up
+RUNTIME_PUTS = 250        # per writer, over 8 keys each
+RUNTIME_VALUE_BYTES = 1024
+COALESCE_OPS = 96         # benchmarks/cluster_bench.py's shape
+
+
+def cluster_full_width(ds: dict, want_uids: list[bytes]) -> dict:
+    """(a) Dataset ``ds`` in ``Cluster(4, "2LP")``: v1, v2 and the fork
+    as phase 3 puts them, each read back; node 1 quarantined and drained
+    by ``rereplicate()``, v1 read back again; then v1 in ``Cluster(4,
+    "1LP")``, which must hold every byte on the key's home node."""
+    from repro_torch.core import Cluster, FBlob
+    from repro_torch.kernels import ops
+
+    v1, v2, tail = ds["v1"], ds["v2"], ds["tail"]
+    ops.reset_launches()
+    cl = Cluster(CLUSTER_NODES, "2LP")
+    out = put_versions(cl, ds, lambda: sum(cl.storage_distribution()))
+    out["bytes"] = len(v1)
+    uid1 = out["uids"][0]
+    t = time.perf_counter()
+    check(cl.get("dataset", uid=uid1).blob().read() == v1,
+          "cluster v1 reads back wrong")
+    check(cl.get("dataset").blob().read() == v2, "cluster v2 reads back wrong")
+    check(cl.get("dataset", "dev").blob().read() == v2 + tail,
+          "cluster v3 reads back wrong")
+    out["get_s"] = time.perf_counter() - t
+    dist = cl.storage_distribution()
+    out.update(distribution=dist, balance=max(dist) / max(1, min(dist)),
+               index_chunks=len(cl.index),
+               requests=[n.stats.requests for n in cl.nodes])
+    # a whole node re-replicated: one fphash_many launch per chunk moved
+    t = time.perf_counter()
+    out["rerep_queued"] = cl.quarantine_node(1, reason="phase 7")
+    out["rerep_moved"] = cl.rereplicate()
+    out["rerep_s"] = time.perf_counter() - t
+    check(cl.rerep_lost == 0 and cl.rerep_done == out["rerep_queued"]
+          and len(cl.nodes[1].store) == 0
+          and 1 not in set(cl.index.values()),
+          "node 1 was not drained by the re-replication")
+    check(cl.get("dataset", uid=uid1).blob().read() == v1,
+          "cluster v1 reads back wrong after the re-replication")
+    out["distribution_rerep"] = cl.storage_distribution()
+    del cl
+    one = Cluster(CLUSTER_NODES, "1LP")
+    t = time.perf_counter()
+    uid = one.put("dataset", FBlob(v1))
+    out["put_1lp_s"] = time.perf_counter() - t
+    home = one._home_index("dataset")
+    dist1 = one.storage_distribution()
+    out.update(distribution_1lp=dist1, home_1lp=home)
+    check(uid == uid1, "the 1LP cluster's v1 uid differs from the 2LP's")
+    check(dist1[home] >= len(v1) and sum(dist1) == dist1[home]
+          and len(one.nodes[home].store) == len(one.index),
+          f"1LP placed bytes off the home node {home}: {dist1}")
+    del one
+    out["launches"] = ops.launches()
+    check(out["uids"] == want_uids,
+          "the cluster's uids differ from the engine's (phase 3)")
+    check(out["v2_new_bytes"] < 0.05 * len(v1),
+          f"cluster v2 stored {out['v2_new_bytes']} new bytes of {len(v1)}")
+    check(out["balance"] < MAX_BALANCE,
+          f"2LP storage max/min {out['balance']:.4f}: {dist}")
+    return out
+
+
+def cluster_skew(edits: int, seed: int = 3) -> dict:
+    """(b) Fig. 15: ``edits`` 8 KB random values to 8 zipf(1.5)-hot
+    pages, one branch each, on 16 servlets in 1LP and in 2LP (the same
+    draws); the coefficient of variation of the storage distribution."""
+    import statistics
+
+    from repro_torch.core import Cluster, FBlob
+    from repro_torch.kernels import ops
+
+    out = {"nodes": SKEW_NODES, "pages": SKEW_PAGES, "edits": edits,
+           "value_bytes": SKEW_VALUE_BYTES}
+    ops.reset_launches()
+    for mode in ("1LP", "2LP"):
+        rng = np.random.default_rng(seed)
+        cl = Cluster(SKEW_NODES, mode)
+        zipf = rng.zipf(1.5, size=edits)
+        t = time.perf_counter()
+        for i, z in enumerate(zipf):
+            cl.put(f"hot{int(z) % SKEW_PAGES}",
+                   FBlob(rng.bytes(SKEW_VALUE_BYTES)), branch=f"b{i}")
+        put_s = time.perf_counter() - t
+        dist = cl.storage_distribution()
+        build = cl.build_distribution()
+        out[mode] = {
+            "cv": statistics.pstdev(dist) / max(1, statistics.mean(dist)),
+            "build_cv": statistics.pstdev(build) / max(1, statistics.mean(build)),
+            "min_bytes": min(dist), "max_bytes": max(dist),
+            "put_ms": put_s / edits * 1e3}
+    out["launches"] = ops.launches()
+    check(out["2LP"]["cv"] < out["1LP"]["cv"]
+          and out["2LP"]["cv"] < MAX_SKEW_CV,
+          f"2LP does not spread the skewed load: {out}")
+    return out
+
+
+def put_batches(cl) -> int:
+    return sum(n.servlet.store.stats.put_batches for n in cl.nodes)
+
+
+def coalescing(ops_n: int, seed: int) -> dict:
+    """Per-request ``Cluster.put`` against coalesced ``ClusterRuntime``
+    puts of the same ``ops_n`` 1 KB values into fresh 4-node clusters,
+    twice each in the order per, coalesced, coalesced, per: µs per op and
+    the routing stores' put batches.  Both must give the same uids."""
+    from repro_torch.core import Cluster, FBlob, RuntimeConfig
+
+    rng = np.random.default_rng(seed)
+    vals = [rng.bytes(RUNTIME_VALUE_BYTES) for _ in range(ops_n)]
+
+    def per_request():
+        cl = Cluster(CLUSTER_NODES)
+        t = time.perf_counter()
+        uids = [cl.put(f"k{i}", FBlob(v)) for i, v in enumerate(vals)]
+        return time.perf_counter() - t, uids, put_batches(cl)
+
+    def coalesced():
+        cl = Cluster(CLUSTER_NODES)
+        rt = cl.runtime(RuntimeConfig(queue_depth=4 * ops_n))
+        t = time.perf_counter()
+        futs = [rt.submit_put(f"k{i}", FBlob(v)) for i, v in enumerate(vals)]
+        rt.drain()
+        uids = [f.result() for f in futs]
+        return time.perf_counter() - t, uids, put_batches(cl)
+
+    runs = {"per_request": [], "coalesced": []}
+    for mode in ("per_request", "coalesced", "coalesced", "per_request"):
+        runs[mode].append((per_request if mode == "per_request"
+                           else coalesced)())
+    uids = {tuple(u) for mode in runs.values() for _, u, _ in mode}
+    check(len(uids) == 1, "coalesced puts give other uids than single puts")
+    out = {"ops": ops_n}
+    for mode, rs in runs.items():
+        out[f"{mode}_us"] = sum(s for s, _, _ in rs) / len(rs) / ops_n * 1e6
+        out[f"{mode}_put_batches"] = rs[0][2]
+    out["speedup"] = out["per_request_us"] / out["coalesced_us"]
+    return out
+
+
+def cluster_runtime(writers: int, puts_each: int, coalesce_ops: int,
+                    seed: int = 4) -> dict:
+    """(c) A threaded ``ClusterRuntime`` with its ``MaintenanceDaemon`` on
+    a fresh 4-node cluster, started before any put: ``writers`` threads
+    put ``puts_each`` 1 KB values each over 8 keys of their own; node 0
+    is quarantined once a quarter of the puts are done.  Then
+    ``rereplicate()``, a placement audit and a stop-the-world GC; every
+    head must be its writer's last put and read back, and node 0 must end
+    empty.  Launches come from several threads here, so only > 0 holds."""
+    import threading
+
+    from repro_torch.core import Cluster, FBlob, RuntimeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.proof.audit import Auditor
+
+    out = {"nodes": CLUSTER_NODES, "writers": writers,
+           "puts": writers * puts_each, "value_bytes": RUNTIME_VALUE_BYTES}
+    ops.reset_launches()
+    cl = Cluster(CLUSTER_NODES)
+    cfg = RuntimeConfig(queue_depth=4096, gc_cycle_ticks=3,
+                        tick_interval_s=0.001, fold_every=2, audit_every=3)
+    t = time.perf_counter()
+    rt = cl.runtime(cfg).start(daemon=True)
+    errors: list = []
+    last: dict[str, tuple[bytes, bytes]] = {}
+    lock = threading.Lock()
+    done = [0]
+    quarter = threading.Event()
+
+    def writer(w):
+        r = np.random.default_rng(seed * 1000 + w)
+        for i in range(puts_each):
+            key = f"w{w}-k{i % 8}"
+            value = r.bytes(RUNTIME_VALUE_BYTES)
+            try:
+                uid = rt.submit_put(key, FBlob(value)).result(timeout=120)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append((key, repr(e)))
+                continue
+            with lock:
+                last[key] = (uid, value)
+                done[0] += 1
+                if 4 * done[0] >= out["puts"]:
+                    quarter.set()
+
+    threads = [threading.Thread(target=writer, args=(w,))
+               for w in range(writers)]
+    for th in threads:
+        th.start()
+    quarter.wait(timeout=300)
+    with lock:
+        out["done_at_quarantine"] = done[0]
+    out["quarantine_backlog"] = cl.quarantine_node(0, reason="mid-run")
+    for th in threads:
+        th.join(timeout=600)
+    out["daemon_ticks"] = rt.daemon.ticks
+    rt.stop()
+    out["run_s"] = time.perf_counter() - t
+    out["puts_per_s"] = out["puts"] / out["run_s"]
+    check(not errors, f"runtime puts failed: {errors[:3]}")
+    check(not any(th.is_alive() for th in threads), "a writer never ended")
+    check(0 < out["done_at_quarantine"] < out["puts"],
+          f"the quarantine did not land mid-run: {out}")
+
+    def heads_hold(when):
+        for key, (uid, value) in last.items():
+            h = cl.get(key)
+            check(h is not None and h.uid == uid
+                  and h.blob().read() == value,
+                  f"{key}'s head is not its writer's last put {when}")
+
+    heads_hold("after the run")
+    t = time.perf_counter()
+    cl.rereplicate()
+    out["rereplicate_s"] = time.perf_counter() - t
+    rep = Auditor(sample=64).audit_placement(cl)
+    check(rep.ok, f"the placement audit after rereplicate: {rep}")
+    gc = cl.gc()
+    out["gc"] = {"swept": gc.swept_chunks, "live": gc.live_chunks}
+    heads_hold("after the GC")
+    check(0 not in set(cl.index.values()) and len(cl.nodes[0].store) == 0,
+          "the quarantined node 0 still holds chunks")
+    out.update(rerep_done=cl.rerep_done, rerep_lost=cl.rerep_lost,
+               distribution=cl.storage_distribution())
+    out["launches"] = ops.launches()
+    out["sample_raw"] = cl.nodes[1].store.get(
+        next(iter(cl.nodes[1].store.iter_cids())))
+    out["coalescing"] = coalescing(coalesce_ops, seed)
+    return out
+
+
+def overwrite_chunk(store, cid: bytes) -> None:
+    """Flip the last byte of ``cid`` in a durable node store (a
+    ``TieredBackend``): on disk in its segment, and in the hot tier when a
+    copy is resident there."""
+    store.flush()
+    cold = store.cold
+    seg = cold._segments[cold._index[cid]]
+    off, ln = seg.live[cid]
+    with open(seg.path, "r+b") as f:
+        f.seek(off + ln - 1)
+        last = f.read(1)[0]
+        f.seek(off + ln - 1)
+        f.write(bytes([last ^ 0x55]))
+    raw = store._hot.get(cid)
+    if raw is not None:
+        store._hot[cid] = raw[:-1] + bytes([raw[-1] ^ 0x55])
+
+
+def cluster_durable(ds: dict, want_uid: bytes) -> dict:
+    """(d) v1 of dataset ``ds`` into ``Cluster(4, durable_root=<a fresh
+    temporary directory>, verify=True)``, ``sync()``, close; a new
+    cluster reopens the root with equal heads and index and reads v1 back
+    (every chunk checked by the single-string kernel); an attestation and
+    an audit are clean, and after one data chunk on node 2 is overwritten
+    an audit of every placement names node 2 alone."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import Cluster, FBlob
+    from repro_torch.core import chunk as ck
+    from repro_torch.kernels import ops
+
+    v1 = ds["v1"]
+    out = {"records": ds["records"], "bytes": len(v1)}
+    root = tempfile.mkdtemp(prefix="forkbase-cluster-")
+    try:
+        ops.reset_launches()
+        cl = Cluster(CLUSTER_NODES, durable_root=root, verify=True)
+        t = time.perf_counter()
+        uid = cl.put("dataset", FBlob(v1))
+        out["put_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        cl.sync()
+        out["sync_s"] = time.perf_counter() - t
+        snaps = [n.servlet.branches.snapshot() for n in cl.nodes]
+        index = dict(cl.index)
+        for n in cl.nodes:
+            n.store.close()
+        del cl
+        t = time.perf_counter()
+        cl = Cluster(CLUSTER_NODES, durable_root=root, verify=True)
+        out["reopen_s"] = time.perf_counter() - t
+        check([n.servlet.branches.snapshot() for n in cl.nodes] == snaps,
+              "the reopened cluster's heads differ")
+        check(dict(cl.index) == index, "the reopened cluster's index differs")
+        t = time.perf_counter()
+        check(cl.get("dataset").blob().read() == v1,
+              "durable cluster v1 reads back wrong")
+        out["get_s"] = time.perf_counter() - t
+        check(uid == want_uid, "the durable cluster's uid differs from the "
+                               "engine's (phase 4)")
+        catt, atts = cl.attest(context=b"phase7", secret=SECRET)
+        check(catt.count == CLUSTER_NODES
+              and sum(a.count for a in atts) == 1,
+              "the cluster attestation does not commit one head")
+        t = time.perf_counter()
+        rep = cl.audit(secret=SECRET)
+        out["audit_ms"] = (time.perf_counter() - t) * 1e3
+        check(rep.ok, f"the durable cluster's audit: {rep}")
+        store = cl.nodes[2].store
+        victim = next(c for c in sorted(store.iter_cids())
+                      if ck.chunk_type(store.get(c)) != ck.META)
+        out["sample_raw"] = store.get(victim)
+        overwrite_chunk(store, victim)
+        t = time.perf_counter()
+        rep = cl.audit(sample=len(cl.index), secret=SECRET)
+        out["full_audit_s"] = time.perf_counter() - t
+        out["audit_chunks"] = rep.chunks_checked
+        named = {f.node for f in rep.findings}
+        check(named == {"node2"} and any(f.cid == victim
+                                         for f in rep.findings),
+              f"the audit of one overwritten chunk on node 2 reports {rep}")
+        out["launches"] = ops.launches()
+        out.update(index_chunks=len(cl.index),
+                   distribution=cl.storage_distribution())
+        for n in cl.nodes:
+            n.store.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def cluster_kernels_vs_plain(dev, rerep_raw: bytes, leaf_raw: bytes,
+                             seed: int = 3) -> dict[str, int]:
+    """Each kernel at the shapes phase 7 adds, against its plain version:
+    the bitmap on one 8 KB skew value, fphash_many on a batch of one chunk
+    (as ``rereplicate_step`` hashes it) and fphash on one leaf chunk (as a
+    verifying node store checks it)."""
+    from repro_torch.core import rolling
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chunker import boundary_bitmap
+    from repro_torch.kernels.fphash import fphash, fphash_many
+
+    x = torch.from_numpy(np.frombuffer(
+        np.random.default_rng(seed).bytes(SKEW_VALUE_BYTES), np.uint8)
+        .copy()).to(dev)
+    k, p = boundary_bitmap(x), rolling.boundary_bitmap(x, 48, 12)
+    check(torch.equal(k, p), "bitmap differs from plain on a skew value")
+    err = {"boundary_bitmap": max_err(k, p)}
+    r = torch.from_numpy(np.frombuffer(rerep_raw, np.uint8).copy()).to(dev)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    n = torch.full((1,), r.numel(), dtype=torch.int64, device=dev)
+    k, p = fphash_many(r, zero, n), ref.fphash_many_ref(r, zero, n)
+    check(torch.equal(k, p), "fphash_many differs from plain on a batch of one")
+    err["fphash_many"] = max_err(k, p)
+    m = torch.from_numpy(np.frombuffer(leaf_raw, np.uint8).copy()).to(dev)
+    k, p = fphash(m), ref.fphash_ref(m)
+    check(torch.equal(k, p), "fphash differs from plain on a leaf chunk")
+    err["fphash"] = max_err(k, p)
+    return err
+
+
+def cluster_path(dev, ds: dict, want_uids: list[bytes],
+                 dds: dict, want_durable_uid: bytes, *,
+                 skew_edits: int = SKEW_EDITS,
+                 writers: int = RUNTIME_WRITERS,
+                 puts_each: int = RUNTIME_PUTS,
+                 coalesce_ops: int = COALESCE_OPS) -> dict:
+    """Phase 7 on ``dev`` with fphash cids: (c) the threaded runtime runs
+    first, so that when the phase runs alone its workers load the kernels;
+    then (a) the full-width dataset ``ds``, (b) the Fig. 15 skew and (d)
+    the durable cluster on ``dds``.  ``launches`` gives each part's
+    launches per kernel; ``max_abs_err`` the kernel checks at phase 7's
+    shapes, made after every count was read."""
+    from repro_torch.core import hashing
+
+    try:
+        hashing.use_fphash()
+        t = time.perf_counter()
+        runtime = cluster_runtime(writers, puts_each, coalesce_ops)
+        synchronize(dev)
+        runtime["part_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        full = cluster_full_width(ds, want_uids)
+        synchronize(dev)
+        full["part_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        skew = cluster_skew(skew_edits)
+        synchronize(dev)
+        skew["part_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        durable = cluster_durable(dds, want_durable_uid)
+        synchronize(dev)
+        durable["part_s"] = time.perf_counter() - t
+        err = cluster_kernels_vs_plain(dev, runtime.pop("sample_raw"),
+                                       durable.pop("sample_raw"))
+    finally:
+        hashing.use_sha256()
+    return {"full_width": full, "skew": skew, "runtime": runtime,
+            "durable": durable, "max_abs_err": err,
+            "launches": {"full_width": full.pop("launches"),
+                         "skew": skew.pop("launches"),
+                         "runtime": runtime.pop("launches"),
+                         "durable": durable.pop("launches")}}
+
+
 # ------------------------------------------------------------ breakdown
 
 def profile_put(v1: bytes) -> dict:
@@ -1365,6 +1800,9 @@ def main() -> int:
     ap.add_argument("--ledger-accounts", type=int, default=LEDGER_ACCOUNTS,
                     help="accounts of phase 6's live ledger; 1000000 runs "
                          "live_bench.py's size (about 150-240 s)")
+    ap.add_argument("--skew-edits", type=int, default=SKEW_EDITS,
+                    help="8 KB edits per placement mode of phase 7's Fig. 15 "
+                         "skew (wiki_bench.py puts 400)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs a GPU",
@@ -1504,18 +1942,62 @@ def main() -> int:
         "attest": churn,
         "archival": arch,
         "launches": lp["launches"]}))
+
+    t = time.perf_counter()
+    cp7 = cluster_path(dev, ds, mp["uids"], dds, want[0],
+                       skew_edits=args.skew_edits)
+    print(f"phase 7 (cluster path): {time.perf_counter() - t:.1f} s")
+    cluster = {k: sum(part[k] for part in cp7["launches"].values())
+               for k in SOURCES}
+    check(all(v > 0 for v in cluster.values()),
+          f"a kernel never launched on the cluster path: {cp7['launches']}")
+    full, skew = cp7["full_width"], cp7["skew"]
+    rt, dur = cp7["runtime"], cp7["durable"]
+    mb, dmb = full["bytes"] / 1e6, dur["bytes"] / 1e6
+    print("cluster path: " + json.dumps({
+        "full_width": {
+            "records": ds["records"], "bytes": full["bytes"],
+            "put_MB_s": mb / full["put_s"], "put_v2_s": full["put_v2_s"],
+            "get_MB_s": (3 * full["bytes"] + len(ds["tail"])) / 1e6
+            / full["get_s"],
+            "v2_new_bytes": full["v2_new_bytes"],
+            "v2_new_fraction": full["v2_new_bytes"] / full["bytes"],
+            "distribution": full["distribution"], "balance": full["balance"],
+            "index_chunks": full["index_chunks"],
+            "requests": full["requests"],
+            "put_1lp_MB_s": mb / full["put_1lp_s"],
+            "distribution_1lp": full["distribution_1lp"],
+            "home_1lp": full["home_1lp"],
+            "rerep_queued": full["rerep_queued"],
+            "rerep_moved": full["rerep_moved"], "rerep_s": full["rerep_s"],
+            "distribution_rerep": full["distribution_rerep"],
+            "part_s": full["part_s"]},
+        "skew": skew,
+        "runtime": rt,
+        "durable": {
+            "records": dur["records"], "bytes": dur["bytes"],
+            "put_MB_s": dmb / dur["put_s"], "sync_s": dur["sync_s"],
+            "reopen_s": dur["reopen_s"], "get_MB_s": dmb / dur["get_s"],
+            "audit_ms": dur["audit_ms"], "full_audit_s": dur["full_audit_s"],
+            "audit_chunks": dur["audit_chunks"],
+            "index_chunks": dur["index_chunks"],
+            "distribution": dur["distribution"], "part_s": dur["part_s"]},
+        "max_abs_err": cp7["max_abs_err"],
+        "launches": cp7["launches"]}))
     kernels = []
     for row in timed:
         src, replaces = SOURCES[row["name"]]
         kernels.append({
             "name": row["name"], "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[row["name"]],
-            "max_abs_err": max(err[row["name"]], row["max_abs_err"]),
+            "max_abs_err": max(err[row["name"]], row["max_abs_err"],
+                               cp7["max_abs_err"][row["name"]]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shape": row["shape"],
             "ckpt_launches": both[row["name"]],
             "ledger_launches": ledger[row["name"]],
+            "cluster_launches": cluster[row["name"]],
             "kernel_ms": row["kernel_ms"],
             "registers": ptx[row["name"]]["registers"]})
     print(json.dumps({"kernels": kernels}))

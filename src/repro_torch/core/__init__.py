@@ -1,4 +1,4 @@
-"""ForkBase core — the paper's storage engine (this slice of the port).
+"""ForkBase core — the paper's storage engine.
 
 Public surface:
   ForkBase (db.py)          — embedded engine: put/get (single and
@@ -6,19 +6,24 @@ Public surface:
                               track/lca/diff/merge (Table 1), gc /
                               incremental_gc / truncate_history, observe
   from_state (db.py)        — an engine over carried-over chunks and heads
+  Cluster (cluster.py)      — distributed deployment, 2-layer partitioning
+  ClusterRuntime,
+  MaintenanceDaemon (runtime.py) — coalesced dispatch, admission control
+                              and the one-budget background loop
   FBlob/FList/FMap/FSet     — chunkable types (POS-Tree backed)
   FString/FTuple/FInt       — primitive types
   POSTree (postree.py)      — Pattern-Oriented-Split Tree
   ChunkStore                — content-addressed chunk storage (alias of
                               storage.MemoryBackend; ReplicatedStore of
                               storage.ReplicatedBackend)
-
-The cluster and its runtime come with a later slice.
 """
 from .branch import (DEFAULT_BRANCH, BranchExists, GuardFailed, NoSuchRef)
 from .chunker import ChunkParams, DEFAULT_PARAMS
 from .chunkstore import ChunkStore, ReplicatedStore
+from .cluster import Cluster, RoutingIndexMiss
 from .db import ForkBase, TypeNotMatch, ValueHandle, from_state
+from .runtime import (Backpressure, ClusterRuntime, MaintenanceDaemon,
+                      RuntimeConfig)
 from .fobject import FObject, load_fobject, make_fobject
 from .merge import (BUILTIN_RESOLVERS, Conflict, MergeConflict,
                     aggregate_resolver, append_resolver, choose_one, lca)
@@ -28,7 +33,7 @@ from ..storage import (ChunkMissing, StorageBackend, TamperedChunk,
                        WriteBuffer, make_backend)
 
 __all__ = [
-    "ForkBase", "ChunkStore", "ReplicatedStore", "POSTree", "from_state",
+    "ForkBase", "Cluster", "ChunkStore", "ReplicatedStore", "POSTree", "from_state",
     "FBlob", "FList", "FMap", "FSet", "FString", "FTuple", "FInt",
     "FObject", "ChunkParams", "DEFAULT_PARAMS", "DEFAULT_BRANCH",
     "GuardFailed", "BranchExists", "NoSuchRef", "TypeNotMatch",
@@ -36,4 +41,6 @@ __all__ = [
     "choose_one", "append_resolver", "aggregate_resolver", "lca",
     "load_fobject", "make_fobject", "StorageBackend", "ChunkMissing",
     "TamperedChunk", "WriteBuffer", "make_backend",
+    "Backpressure", "ClusterRuntime", "MaintenanceDaemon",
+    "RuntimeConfig", "RoutingIndexMiss",
 ]

@@ -93,7 +93,7 @@ class ValueHandle:
 
 class ForkBase:
     """Embedded single-servlet engine (one servlet + one chunk storage,
-    §4.1)."""
+    §4.1).  cluster.Cluster wires several of these behind a dispatcher."""
 
     def __init__(self, store: StorageBackend | None = None,
                  params: ChunkParams = DEFAULT_PARAMS, *,
@@ -503,8 +503,11 @@ class ForkBase:
         When the store is a cluster routing store, its sweep inventory
         spans the whole cluster, so the collection must be the
         cluster's: this delegates to ``Cluster.gc`` (contributing this
-        engine's own heads, pins and hooks).  The cluster comes with a
-        later slice of the port; until then no store has a cluster."""
+        engine's own heads, pins and hooks), which unions every
+        servlet's roots and sweeps each node's store directly.  A
+        single-servlet ``gc()`` is therefore exactly as safe as
+        ``Cluster.gc()``, and no servlet's write-side routing counters
+        are skewed by deleting chunks another servlet wrote."""
         from ..gc import GarbageCollector
         cluster = getattr(self.store, "cluster", None)
         if cluster is not None:
@@ -545,7 +548,7 @@ class ForkBase:
                                          extra_hooks=self.gc_hooks)
             # an external engine sharing a routing store is a committer
             # too: its fork-from-uid / pin root barriers must reach the
-            # cluster's collection
+            # cluster's collection (servlets are registered by Cluster)
             self._track_collector(col)
             return col
         col = IncrementalCollector(self.store, branches=self.branches,

@@ -8,8 +8,8 @@
   LiveStats    flat-path counters (hits/misses/folds/fold cost)
 
 Entry points: ``ForkBase.live(key, branch)`` / ``ForkBase.commit_epoch()``
-(embedded engine).  The cluster's routed ``Cluster.live`` /
-``Cluster.commit_epoch()`` come with the cluster slice of the port.
+(embedded engine), ``Cluster.live(key, branch)`` / ``Cluster.commit_epoch()``
+(routed per servlet).
 """
 from .table import (EpochPolicy, EpochReport, FoldReport, LiveStats,
                     LiveTable)

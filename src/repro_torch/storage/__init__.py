@@ -12,8 +12,9 @@ implementations:
   ShardedBackend    cid-hash partitioning across in-process shards
   WriteBuffer       write-behind batch: one put_many per value commit
 
-The reference's ``cluster._RoutingStore`` (meta-pinned two-layer
-partitioning) lives with the cluster, which is not ported yet.
+``cluster._RoutingStore`` (meta-pinned two-layer partitioning) is the
+sixth implementation; it lives with the cluster because it routes
+through cluster state.
 
 Select or stack backends with ``make_backend``:
 

@@ -1,8 +1,7 @@
 """Durable tiered storage of the port (repro_torch.storage.durable), on
 the CPU: crash recovery, restart, tiering policy, GC-fed compaction and
-the durable checkpoint restart — the JAX package's
-``tests/test_durable.py``, less the durable cluster restart, which comes
-with the cluster slice of the port.
+the durable checkpoint and cluster restarts — the JAX package's
+``tests/test_durable.py``.
 
 The reopen-after-kill family runs against BOTH append-only on-disk
 stores — ``MemoryBackend(log_path=...)`` and ``SegmentBackend`` — since
@@ -16,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import FBlob, ForkBase, FMap
+from repro_torch.core import Cluster, FBlob, ForkBase, FMap
 from repro_torch.core.branch import BranchTable
 from repro_torch.core.chunk import cid_of, encode_chunk
 from repro_torch.kernels import ops
@@ -332,6 +331,32 @@ def test_forkbase_durable_restart_bit_identical_heads(tmp_path, rng):
     db2.put(b"table", FMap({b"a": b"1"}), "dev")
     assert db2.gc().missing_roots == 0
     db2.sync()
+
+
+def test_cluster_durable_restart_bit_identical_heads(tmp_path, rng):
+    """Acceptance: a cluster built over the tiered backend survives
+    process restart with bit-identical branch heads."""
+    root = str(tmp_path / "clu")
+    c = Cluster(3, durable_root=root, segment_bytes=8 << 10)
+    for i in range(12):
+        c.put(b"key%02d" % i,
+              FMap({b"f%02d" % j: rng.bytes(40) for j in range(8)}))
+    c.fork(b"key03", "master", "side")
+    c.put(b"key03", FMap({b"x": b"y"}), "side")
+    c.sync()
+    snaps = [n.servlet.branches.snapshot() for n in c.nodes]
+    index_size = len(c.index)
+    del c
+    c2 = Cluster(3, durable_root=root, segment_bytes=8 << 10)
+    assert [n.servlet.branches.snapshot() for n in c2.nodes] == snaps
+    assert len(c2.index) == index_size      # master location map rebuilt
+    assert c2.get(b"key03", "side").map().get(b"x") == b"y"
+    for i in range(12):
+        assert c2.get(b"key%02d" % i).map().get(b"f00") is not None
+    # restarted cluster collects and keeps serving
+    rep = c2.gc()
+    assert rep.missing_roots == 0
+    assert c2.get(b"key07").map().get(b"f05") is not None
 
 
 def test_ckpt_durable_restart(tmp_path, rng):

@@ -521,3 +521,27 @@ def test_list_and_set_types(db):
     ss.remove(b"p")
     db.put("st", ss)
     assert set(db.get("st").set()) == {b"q", b"r"}
+
+
+def test_cluster_balance(rng):
+    counts = {}
+    for mode in ("1LP", "2LP"):
+        cl = pc.Cluster(8, mode, P8)
+        r = np.random.default_rng(1)
+        for i in range(40):
+            cl.put(f"hot{i % 2}", pc.FBlob(r.bytes(16000)), branch=f"b{i}")
+        dist = cl.storage_distribution()
+        counts[mode] = (max(dist) + 1) / (min(dist) + 1)
+    assert counts["2LP"] < counts["1LP"]
+
+
+def test_cluster_api_roundtrip():
+    cl = pc.Cluster(4, "2LP", P8)
+    cl.put("k", pc.FBlob(b"hello world" * 100))
+    assert cl.get("k").blob().read() == b"hello world" * 100
+    cl.fork("k", "master", "dev")
+    b = cl.get("k", "dev").blob()
+    b.append(b"!")
+    cl.put("k", b, "dev")
+    assert cl.get("k", "dev").blob().read().endswith(b"!")
+    assert len(cl.track("k", "dev")) == 2

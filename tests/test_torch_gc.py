@@ -3,16 +3,16 @@ batched mark, sweep, pins, checkpoint retention (prune and hold), and the
 core safety property — GC never collects a chunk reachable from any
 surviving head, under randomized put/fork/merge/remove/gc workloads.
 
-The JAX package's ``tests/test_gc.py`` less its three cluster tests,
-which come with the cluster slice of the port.  Checkpoint states are
+The JAX package's ``tests/test_gc.py``, its three cluster tests
+included.  Checkpoint states are
 dicts of float32 tensors made from the same numpy draws."""
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (BranchExists, FBlob, ForkBase, FString,
-                              NoSuchRef)
+from repro_torch.core import (BranchExists, Cluster, FBlob, ForkBase,
+                              FString, NoSuchRef)
 from repro_torch.gc import PinSet, mark
 from repro_torch.kernels import ops
 from repro_torch.storage import MemoryBackend
@@ -299,6 +299,77 @@ def test_ckpt_hold_blocks_prune_reclaim(rng):
     cs.db.gc()
     with pytest.raises(KeyError):
         cs.db.get(cs.key, uid=old_uid)
+
+
+# -------------------------------------------------------------- cluster
+
+def test_cluster_gc_global_roots(rng):
+    cl = Cluster(4)
+    keep = {}
+    for i in range(6):                           # keys land on many servlets
+        k = f"key{i}"
+        keep[k] = rng.bytes(20_000)
+        cl.put(k, FBlob(keep[k]))
+        cl.fork(k, "master", "tmp")
+        cl.put(k, FBlob(rng.bytes(20_000)), "tmp")
+    n0 = len(cl.index)
+    for k in keep:
+        cl.remove(k, "tmp")
+    report = cl.gc()
+    assert report.swept_chunks > 0
+    assert len(cl.index) < n0
+    for k, d in keep.items():                    # every survivor intact
+        assert cl.get(k).blob().read() == d
+    assert cl.gc().swept_chunks == 0             # idempotent
+    # stats stay coherent: node stores and placement counters shrink,
+    # nothing is debited into the negative, and the per-servlet
+    # routing-store write counters are untouched by the sweep
+    for n in cl.nodes:
+        assert n.store.stats.physical_bytes >= 0
+        assert n.stats.chunk_bytes >= 0 and n.stats.chunks >= 0
+        assert n.servlet.store.stats.physical_bytes >= 0
+    assert sum(n.stats.chunks for n in cl.nodes) == len(cl.index)
+
+
+def test_single_servlet_gc_is_cluster_safe(rng):
+    """gc() on ONE servlet must union the global root set — other
+    servlets' keys survive even though the shared inventory is swept."""
+    cl = Cluster(4)
+    keep = {}
+    for i in range(6):
+        keep[f"key{i}"] = rng.bytes(15_000)
+        cl.put(f"key{i}", FBlob(keep[f"key{i}"]))
+        cl.fork(f"key{i}", "master", "tmp")
+        cl.put(f"key{i}", FBlob(rng.bytes(15_000)), "tmp")
+        cl.remove(f"key{i}", "tmp")
+    report = cl.nodes[0].servlet.gc()      # delegates to Cluster.gc
+    assert report.swept_chunks > 0
+    for k, d in keep.items():
+        assert cl.get(k).blob().read() == d
+    # the sweep never skews any servlet's write-side routing counters
+    for n in cl.nodes:
+        assert n.servlet.store.stats.physical_bytes >= 0
+
+
+@pytest.mark.parametrize("incremental", [False, True])
+def test_cluster_gc_rebases_build_pressure_on_live_bytes(rng, incremental):
+    """ROADMAP "GC-aware rebalancing": after a collection — incremental
+    or stop-the-world — construction-pressure counters must track the
+    post-GC LIVE byte distribution, not gross bytes ever written; a node
+    whose data was mostly collected stops repelling new work."""
+    from repro_torch.core import ChunkParams
+    cl = Cluster(4, "2LP", ChunkParams(q=8))
+    for i in range(24):                     # one hot key: skewed pressure
+        cl.put("hotkey", FBlob(rng.bytes(30_000)), branch=f"b{i}")
+    gross = sum(cl.build_distribution())
+    for i in range(1, 24):
+        cl.remove("hotkey", f"b{i}")        # most of it becomes garbage
+    report = cl.gc(incremental=incremental, budget=32)
+    assert report.swept_chunks > 0
+    live = [max(0, n.stats.chunk_bytes) for n in cl.nodes]
+    assert cl.build_distribution() == live  # rebased on live placement
+    assert sum(cl.build_distribution()) < gross
+    assert cl.get("hotkey", "b0") is not None
 
 
 # ------------------------------------------------- property: GC is safe

@@ -23,8 +23,7 @@ counting store wrapper) and directed regressions for the root-barrier
 rescue paths.
 
 The port's copy (repro_torch.gc, on the CPU) of the JAX package's
-``tests/test_gc_concurrent.py``, less its cluster test, which comes with
-the cluster slice of the port.
+``tests/test_gc_concurrent.py``, its cluster test included.
 """
 from __future__ import annotations
 
@@ -440,6 +439,25 @@ def test_pin_mid_sweep_rescues_through_gc_hooks(rng):
         pass
     out = cs.restore(state, uid=uid)            # tensors fully readable
     assert torch.equal(out["w"], state["w"])
+
+
+def test_external_engine_root_barrier_reaches_cluster_collection(rng):
+    """An external ForkBase sharing a servlet's routing store begins the
+    collection; its own fork-from-uid mid-sweep must still rescue."""
+    from repro_torch.core import Cluster
+    cl = Cluster(3)
+    db = ForkBase(cl.nodes[0].servlet.store)    # external committer
+    data = rng.bytes(20_000)
+    uid = db.put("k", FBlob(data), "tmp")
+    db.remove("k", "tmp")                       # detached
+    col = db.incremental_gc()                   # delegates to the cluster
+    while col.step(8) is GCPhase.MARK:
+        pass
+    assert col.phase is GCPhase.SWEEP
+    db.fork("k", uid, "back")                   # external root barrier
+    while col.step(8) is not GCPhase.DONE:
+        pass
+    assert db.get("k", "back").blob().read() == data
 
 
 def test_root_barrier_counts_only_present_rescues(rng):

@@ -12,8 +12,8 @@ live-served gets must match the model, and every proof verb must verify
 against live-served values.
 
 One rule set drives both a Hypothesis state machine and a seeded numpy
-reference fuzzer.  The JAX package's ``tests/test_live.py`` less its
-cluster routing test, which comes with the cluster slice of the port."""
+reference fuzzer.  The JAX package's ``tests/test_live.py``, its
+cluster routing test included."""
 from __future__ import annotations
 
 import os
@@ -347,6 +347,19 @@ def test_live_wiki_epoch_history():
     w.fold()
     assert w.read_version("Page", 0) == b"final " * 60
     assert w.read_version("Page", 1) == b"draft " * 60
+
+
+def test_cluster_live_routing():
+    from repro_torch.core.cluster import Cluster
+    cluster = Cluster(3, "2LP", PARAMS)
+    keys = [f"ck{i}".encode() for i in range(6)]
+    for i, k in enumerate(keys):
+        cluster.live(k).put(b"n", str(i).encode())
+    reps = cluster.commit_epoch(context=b"e0")
+    assert sum(len(r.folds) for r in reps) == len(keys)
+    for i, k in enumerate(keys):
+        assert cluster.get(k).map().get(b"n") == str(i).encode()
+        assert cluster.live(k).get(b"n") == str(i).encode()
 
 
 # ------------------------------------------------------ equivalence fuzz

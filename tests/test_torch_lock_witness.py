@@ -1,7 +1,7 @@
 """Runtime lock witness of the port (repro_torch.core.locking): rank
 inversions, cycles and hold accounting — the JAX package's
-``tests/test_lock_witness.py`` less its end-to-end cluster test, which
-comes with the cluster slice of the port.  The port's tables must stay
+``tests/test_lock_witness.py``, its end-to-end cluster test included.
+The port's tables must stay
 the reference's (the static analyzer reads the reference's)."""
 import threading
 
@@ -249,6 +249,37 @@ def test_witnessed_engine_incremental_gc(rng):
         ranks = {name.split("[")[0].split("#")[0]
                  for name in locking.WITNESS.report()["locks"]}
         assert {"collector", "fence"} <= ranks   # the wiring is live
+    finally:
+        locking.disable_witness()
+        locking.WITNESS.reset()
+        ops.set_device("cuda")
+
+
+def test_witnessed_cluster_round_trip(rng):
+    """Real cluster under the witness: puts, reads, and a full
+    incremental GC epoch acquire ranked locks only in documented
+    order."""
+    from repro_torch.kernels import ops
+    ops.set_device("cpu")
+    locking.enable_witness()
+    locking.WITNESS.reset()
+    try:
+        from repro_torch.core.cluster import Cluster
+        cl = Cluster(n_nodes=3)
+        for i in range(4):
+            cl.put(f"k{i}".encode(), rng.integers(0, 256, 4096,
+                                                  dtype="u1").tobytes())
+        from repro_torch.gc.incremental import GCPhase
+        col = cl.incremental_gc()
+        while col.step(budget=64) is not GCPhase.DONE:
+            pass
+        for i in range(4):
+            assert cl.get(f"k{i}".encode()) is not None
+        locking.WITNESS.assert_clean()
+        rep = locking.WITNESS.report()
+        ranks = {name.split("[")[0].split("#")[0]
+                 for name in rep["locks"]}
+        assert "servlet" in ranks            # the wiring is actually live
     finally:
         locking.disable_witness()
         locking.WITNESS.reset()

@@ -1,8 +1,7 @@
 """Observability layer of the port (repro_torch.obs): metrics, spans,
-events, exporters, the tier and segment events of the durable stores and
-the GC events — the JAX package's ``tests/test_obs.py``, less the cluster
-tests (the audit-daemon events test among them: it builds a ``Cluster``),
-which come with the cluster slice of the port.
+events, exporters, the tier and segment events of the durable stores, the
+GC events, the cluster's span fan-out and the audit daemon's quarantine
+journal — the JAX package's ``tests/test_obs.py``.
 
 Every test resets the process-wide registry/journal FIRST and builds
 its stores AFTER the reset: ``REGISTRY.reset()`` drops the instrument
@@ -15,6 +14,7 @@ import numpy as np
 import pytest
 
 from repro_torch import obs
+from repro_torch.core import Cluster, FBlob
 from repro_torch.kernels import ops
 from repro_torch.storage import MemoryBackend
 from repro_torch.storage.backend import StoreStats, TamperedChunk
@@ -144,6 +144,58 @@ def test_read_timing_is_sampled_one_in_eight():
     assert store.stats.gets == 9 * 2 + 1   # StoreStats still counts all
 
 
+# --------------------------------------------------- cluster span fan-out
+
+def test_cluster_fanout_parent_child_ids_across_servlets():
+    cl = Cluster(n_nodes=4, mode="2LP")
+    rng = np.random.default_rng(0)
+    for i in range(8):
+        cl.put(f"key-{i}", FBlob(rng.bytes(2048)))
+    roots = [sp for sp in obs.recent_spans() if sp.name == "cluster.put"]
+    assert len(roots) == 8
+    all_ids = []
+    for root in roots:
+        engine = [c for c in root.children if c.name == "engine.put"]
+        assert len(engine) == 1
+        assert engine[0].parent_id == root.span_id
+        assert root.child_seconds() <= root.duration_s
+        all_ids.extend(sp.span_id for sp in root.walk())
+    assert len(all_ids) == len(set(all_ids))   # ids unique across fan-out
+
+
+def test_durable_cluster_put_trace_has_four_layers(tmp_path):
+    # tiny hot tier: the put demotes to the segment store INSIDE the
+    # tiered put, so one client put yields the full layer stack
+    cl = Cluster(n_nodes=2, durable_root=str(tmp_path),
+                 hot_bytes=1 << 10, segment_bytes=256 << 10)
+    rng = np.random.default_rng(1)
+    cl.put("doc", FBlob(rng.bytes(64 << 10)))
+    root = next(sp for sp in reversed(obs.recent_spans())
+                if sp.name == "cluster.put")
+
+    # per-layer spans under one root, with per-layer backend labels
+    names = [sp.name for sp in root.walk()]
+    assert "engine.put" in names
+    backends = {sp.attrs.get("backend") for sp in root.walk()
+                if sp.name == "store.put"}
+    assert {"routing", "tiered", "segment"} <= backends
+
+    def depth(sp):
+        return 1 + max((depth(c) for c in sp.children), default=0)
+
+    assert depth(root) >= 4        # cluster -> engine -> routing -> tiered+
+
+    # timing discipline: at every node, summed child time <= own time
+    for sp in root.walk():
+        assert sp.child_seconds() <= sp.duration_s * (1 + 1e-9)
+        for c in sp.children:
+            assert c.parent_id == sp.span_id
+    put_spans = [sp for sp in root.walk() if sp.name == "store.put"]
+    assert all(sp.attrs.get("chunks", 0) >= 1 for sp in put_spans)
+    assert any(sp.attrs.get("bytes", 0) > 0 for sp in put_spans)
+    cl.sync()
+
+
 # --------------------------------------------------------------- events
 
 def test_eventlog_ring_bound_and_jsonl_sink(tmp_path):
@@ -252,8 +304,6 @@ def test_durable_engine_put_trace_has_tier_and_segment_layers(tmp_path):
     assert st["tier_demotions"] > 0 and 0.0 <= st["tier_hit_rate"] <= 1.0
 
 
-# ------------------------------------------------------------ exporters
-
 # ------------------------------------------------------------ GC events
 
 def test_gc_events_and_slice_pause_history():
@@ -277,6 +327,66 @@ def test_gc_events_and_slice_pause_history():
                           for p in pauses)
     assert "gc_slice_us" in snap["metrics"]["histograms"]
     json.dumps(snap)                                # JSON-safe
+
+
+# ------------------------------------------------------- audit journal
+
+def test_audit_quarantine_and_release_events(monkeypatch):
+    from repro_torch.proof.audit import AuditDaemon, AuditFinding, AuditReport
+
+    cl = Cluster(n_nodes=2)
+    cl.put("x", FBlob(b"payload" * 64))
+    daemon = AuditDaemon(cl, sample=4)
+    monkeypatch.setattr(
+        daemon, "_audit_target",
+        lambda target: AuditReport(findings=[
+            AuditFinding("node0", "corrupt", "injected corruption")]))
+    rep = daemon.tick()
+    assert not rep.ok and "node0" in daemon.quarantined
+    quarantines = obs.EVENTS.events("audit.quarantine")
+    assert quarantines and quarantines[-1]["node"] == "node0"
+    assert quarantines[-1]["reason"] == "corrupt"
+    assert obs.counter("audit_quarantines_total").value == 1
+    assert obs.gauge("audit_quarantined_nodes").value == 1
+    assert obs.EVENTS.counts().get("audit.finding", 0) >= 1
+
+    daemon.release("node0")
+    releases = obs.EVENTS.events("audit.release")
+    assert releases and releases[-1]["node"] == "node0"
+    assert releases[-1]["reason"] == "operator-release"
+    assert obs.counter("audit_releases_total").value == 1
+    assert obs.gauge("audit_quarantined_nodes").value == 0
+
+
+# ------------------------------------------------------------ exporters
+
+def test_snapshot_json_roundtrip_with_tier_and_gc(tmp_path):
+    cl = Cluster(n_nodes=2, durable_root=str(tmp_path),
+                 hot_bytes=4 << 10, segment_bytes=64 << 10)
+    rng = np.random.default_rng(3)
+    for i in range(4):
+        cl.put(f"k{i}", FBlob(rng.bytes(8 << 10)))
+    for i in range(4):
+        assert cl.get(f"k{i}").blob().read()
+    obs.record_gc_pause("mark", 123e-6, epoch=5)
+
+    snap = cl.observe()
+    blob = json.dumps(snap)                      # JSON-safe end to end
+    assert json.loads(blob) == snap
+    assert snap["enabled"] is True
+    hists = snap["metrics"]["histograms"]
+    put_keys = [k for k in hists if k.startswith("store_put_us")]
+    assert put_keys
+    assert all({"p50_us", "p99_us", "max_us", "count"} <= set(hists[k])
+               for k in put_keys)
+    assert snap["gc"]["slice_pauses"][-1] == {"phase": "mark", "epoch": 5,
+                                              "us": 123.0}
+    roll = snap["stores"]["cluster"]
+    assert 0.0 <= roll["tier_hit_rate"] <= 1.0
+    assert roll["puts"] == sum(snap["stores"][f"node{i}"]["puts"]
+                               for i in range(2))
+    assert snap["cluster"]["mode"] == "2LP"
+    assert [sp for sp in snap["spans"] if sp["name"] == "cluster.put"]
 
 
 def test_prometheus_text_renders_all_instrument_kinds():

@@ -3,17 +3,17 @@ membership and absence proofs, lineage proofs, head attestations, the
 replica and engine audits, the light client, forgery sweeps and the wire
 format.
 
-The JAX package's ``tests/test_proof.py`` less its three cluster tests
-and the cluster tail of
-``test_audit_reports_instead_of_raising_on_verify_store``, which come
-with the cluster slice of the port; plus ``tests/test_api.py``'s
-``test_verify_lineage``."""
+The JAX package's ``tests/test_proof.py`` with its cluster tests (the
+per-servlet attestation, the cluster audit of a corrupt node, of a
+verify-enabled node and of a routing divergence), plus
+``tests/test_api.py``'s ``test_verify_lineage``."""
 import dataclasses
 
 import numpy as np
 import pytest
 
-from repro_torch.core import FBlob, FList, FMap, FSet, ForkBase, FString
+from repro_torch.core import (Cluster, FBlob, FList, FMap, FSet, ForkBase,
+                              FString)
 from repro_torch.core import chunk as ck
 from repro_torch.core.chunker import ChunkParams
 from repro_torch.core.postree import POSTree
@@ -223,6 +223,20 @@ def test_wrong_secret_rejected(db, rng):
     verify_head(att, proof, secret=b"right")
     with pytest.raises(InvalidProof):
         verify_head(att, proof, secret=b"wrong")
+
+
+def test_cluster_attestation_per_servlet():
+    cl = Cluster(3)
+    for i in range(8):
+        cl.put("key%d" % i, FBlob(b"v%d" % i))
+    catt, atts = cl.attest(context=b"e", secret=b"s")
+    assert catt.count == 3 and len(atts) == 3
+    assert sum(a.count for a in atts) == 8
+    # drill into one servlet: its attestation commits its keys
+    for ni, nd in enumerate(cl.nodes):
+        for key in nd.servlet.branches.keys():
+            proof = prove_head(nd.servlet.branches, key, "master")
+            verify_head(atts[ni], proof, secret=b"s")
 
 
 # -------------------------------------------------- forged-proof rejection
@@ -448,6 +462,30 @@ def test_engine_audit_end_to_end(db, rng):
     assert rep.ok and rep.proofs_verified > 0 and rep.heads_checked == 4
 
 
+def test_cluster_audit_catches_node_corruption(rng):
+    cl = Cluster(3, params=PARAMS)
+    for i in range(6):
+        cl.put("key%d" % i, FBlob(rng.bytes(8000)))
+    assert cl.audit(sample=10_000, secret=b"s").ok
+    nd = cl.nodes[2]
+    cid = sorted(nd.store._data)[1]
+    raw = nd.store._data[cid]
+    nd.store._data[cid] = raw[:-1] + bytes([raw[-1] ^ 0xFF])
+    rep = cl.audit(sample=10_000, secret=b"s")
+    assert not rep.ok
+    assert any(f.node == "node2" for f in rep.findings)
+
+
+def test_cluster_audit_detects_routing_divergence(rng):
+    cl = Cluster(3, params=PARAMS)
+    cl.put("key", FBlob(b"v"))
+    home = cl._home_index("key")
+    rogue = cl.nodes[(home + 1) % 3].servlet
+    rogue.branches.set_head(b"key", "master", cl.get("key").uid)
+    rep = cl.audit(sample=100)
+    assert any(f.kind == "diverged" for f in rep.findings)
+
+
 def test_audit_reports_instead_of_raising_on_verify_store(rng):
     """A verify-enabled store raises TamperedChunk on Get; the auditor
     must absorb that into a 'corrupt' finding, not crash."""
@@ -467,6 +505,15 @@ def test_audit_reports_instead_of_raising_on_verify_store(rng):
             s._data[cid] = _flip_tail(s._data[cid])
     rep = rb.audit(sample=10)
     assert not rep.ok and all(f.kind == "corrupt" for f in rep.findings)
+    # cluster: a verify-enabled node with a corrupt chunk
+    cl = Cluster(2, params=PARAMS, verify=True)
+    cl.put("key", FBlob(rng.bytes(4000)))
+    nd = cl.nodes[0] if cl.nodes[0].store._data else cl.nodes[1]
+    c0 = sorted(nd.store._data)[0]
+    nd.store._data[c0] = _flip_tail(nd.store._data[c0])
+    rep = cl.audit(sample=10_000)
+    assert not rep.ok
+    assert any(f.kind == "corrupt" for f in rep.findings)
 
 
 def test_light_client_rejects_empty_lineage(rng):

@@ -12,14 +12,15 @@ Covers:
   * the attest-vs-sweep orphaning race: heads committed by an
     attestation stay provable through the next collection (EpochFence)
     and are rescued from a live sweep (attest_fence);
-  * per-root proof cache + persistent verify memo.
+  * per-root proof cache + persistent verify memo;
+  * AuditDaemon: exponential backoff per clean node, immediate
+    re-audit + quarantine on a finding, release.
 
-The JAX package's ``tests/test_proof_delta.py`` less its two cluster
-tests and its four AuditDaemon tests, which build a ``Cluster`` and come
-with the cluster slice of the port."""
+The JAX package's ``tests/test_proof_delta.py``, its cluster and
+AuditDaemon tests included."""
 import pytest
 
-from repro_torch.core import FBlob, FMap, ForkBase
+from repro_torch.core import Cluster, FBlob, FMap, ForkBase
 from repro_torch.core.chunker import ChunkParams
 from repro_torch.proof import (InvalidProof, VerifyMemo, attest_heads,
                                attestation_epoch, verify_head,
@@ -311,3 +312,128 @@ def test_verify_memo_persists_across_rounds(db, rng):
     bad = dataclasses.replace(items[0][1], value=b"forged")
     with pytest.raises(InvalidProof):
         verify_member_many([(items[0][0], bad)], memo=memo)
+
+
+# ------------------------------------------------------------ audit daemon
+
+def test_cluster_attestations_carry_cluster_epoch(rng):
+    cl = Cluster(3, params=PARAMS)
+    for i in range(6):
+        cl.put("key%d" % i, FBlob(rng.bytes(500)))
+    catt, atts = cl.attest(secret=b"s")
+    assert attestation_epoch(catt) == 0
+    assert all(attestation_epoch(a) == 0 for a in atts)
+    cl.gc()
+    catt, atts = cl.attest(secret=b"s")
+    assert attestation_epoch(catt) == 1
+    assert all(attestation_epoch(a) == 1 for a in atts)
+
+
+def test_cluster_attested_head_survives_next_collection(rng):
+    cl = Cluster(3, params=PARAMS)
+    cl.put("key", FBlob(rng.bytes(9_000)), "tmp")
+    svc = cl.servlet_of("key")
+    uid = svc.branches.head(b"key", "tmp")
+    cl.attest(secret=b"s")                       # pins every servlet head
+    cl.remove("key", "tmp")
+    cl.gc()                                      # epoch 1: fenced
+    assert cl.get("key", uid=uid).blob().read() is not None
+    rep = cl.gc()                                # epoch 2: reclaimed
+    assert rep.swept_chunks > 0
+
+
+def _mk_cluster(rng, n=3, keys=8):
+    cl = Cluster(n, params=PARAMS)
+    for i in range(keys):
+        cl.put("key%d" % i, FMap({b"e%02d" % j: rng.bytes(12)
+                                  for j in range(40)}))
+    return cl
+
+
+def test_daemon_backs_off_clean_nodes(rng):
+    cl = _mk_cluster(rng)
+    d = cl.audit_daemon(sample=64, secret=b"s", max_interval=16)
+    for _ in range(60):
+        rep = cl.audit_tick(budget=2)
+        assert rep.ok
+    # every target audited clean repeatedly -> intervals at the cap
+    assert all(iv == 16 for iv in d._interval.values())
+    # backoff means far fewer audits than (ticks x targets)
+    assert d.audits < 60 * len(d._interval) / 2
+    assert not d.quarantined
+
+
+def test_daemon_quarantines_on_repeatable_finding(rng):
+    cl = _mk_cluster(rng)
+    d = cl.audit_daemon(sample=64, secret=b"s", max_interval=8)
+    for _ in range(20):
+        assert cl.audit_tick(budget=2).ok
+    audits_before = d.audits
+    # corrupt a head meta chunk on one node (heads are always checked)
+    ni = next(i for i, nd in enumerate(cl.nodes)
+              if nd.servlet.branches.keys())
+    key = cl.nodes[ni].servlet.branches.keys()[0]
+    uid = cl.nodes[ni].servlet.branches.head(key, "master")
+    raw = cl.nodes[ni].store._data[uid]
+    cl.nodes[ni].store._data[uid] = raw[:-1] + bytes([raw[-1] ^ 1])
+    bad_tick = None
+    for t in range(20):
+        rep = cl.audit_tick(budget=2)
+        if not rep.ok:
+            bad_tick = t
+            break
+    assert bad_tick is not None
+    assert f"node{ni}" in d.quarantined
+    # the finding triggered an immediate re-audit (two audits that tick)
+    assert d.audits >= audits_before + 2
+    assert any(f.node == f"node{ni}" for f in d.findings)
+    # repair + release: node re-enters rotation and audits clean again
+    cl.nodes[ni].store._data[uid] = raw
+    d.release(f"node{ni}")
+    assert all(cl.audit_tick(budget=2).ok for _ in range(10))
+    assert f"node{ni}" not in d.quarantined
+
+
+def test_daemon_transient_finding_does_not_quarantine(rng):
+    """A finding that vanishes on the immediate re-audit (read race,
+    repaired replica) must not quarantine the node."""
+    from repro_torch.proof.audit import AuditDaemon
+    cl = _mk_cluster(rng)
+    d = AuditDaemon(cl, sample=64, secret=b"s")
+    ni = 0
+    while not cl.nodes[ni].servlet.branches.keys():
+        ni += 1
+    key = cl.nodes[ni].servlet.branches.keys()[0]
+    uid = cl.nodes[ni].servlet.branches.head(key, "master")
+    raw = cl.nodes[ni].store._data[uid]
+    cl.nodes[ni].store._data[uid] = raw[:-1] + bytes([raw[-1] ^ 1])
+    flipped = {"done": False}
+    orig = d._audit_target
+
+    def healing(target):
+        rep = orig(target)
+        if not rep.ok and not flipped["done"]:
+            cl.nodes[ni].store._data[uid] = raw      # repaired in between
+            flipped["done"] = True
+        return rep
+
+    d._audit_target = healing
+    for _ in range(20):
+        d.tick(budget=2)
+    assert flipped["done"]                       # the finding did surface
+    assert not d.quarantined                     # but did not stick
+
+
+def test_daemon_covers_placement(rng):
+    """The master-index placement check is its own backoff target: a
+    chunk lost by its owning node is found without any engine audit."""
+    from repro_torch.proof.audit import AuditDaemon
+    cl = _mk_cluster(rng)
+    d = AuditDaemon(cl, sample=10_000, secret=b"s")
+    cid, ni = next(iter(cl.index.items()))
+    del cl.nodes[ni].store._data[cid]            # node silently lost it
+    seen = []
+    for _ in range(12):
+        seen.extend(d.tick(budget=4).findings)
+    assert any(f.kind == "missing" and f.cid == cid for f in seen)
+    assert f"node{ni}" in d.quarantined

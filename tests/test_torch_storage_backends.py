@@ -1,22 +1,22 @@
 """Backend conformance of the port (repro_torch.storage), on the CPU: the
 shared put/get/has/delete/dedup/stats suite of the JAX package's
 ``tests/test_storage_backends.py`` over every ported StorageBackend
-(memory, log, LRU, replicated, sharded, durable segment, tiered), with
+(memory, log, LRU, replicated, sharded, cluster routing, durable segment,
+tiered), with
 the verified and tamper variants, the log replay and write-buffer tests,
 ``make_backend`` and the fphash dispatch.
 
 The GC tests run through every stack too: a stop-the-world collection,
 a put landing mid-mark and a dedup put landing mid-sweep (the race the
-parked barrier lock closes).  The cluster routing store of the reference
-comes with the cluster slice of the port.  Hypothesis properties run as
-seeded loops.
+parked barrier lock closes).  Hypothesis properties run as seeded
+loops.
 """
 import itertools
 
 import numpy as np
 import pytest
 
-from repro_torch.core import ForkBase, FBlob, FMap
+from repro_torch.core import Cluster, ForkBase, FBlob, FMap
 from repro_torch.core.chunk import cid_of, encode_chunk
 from repro_torch.errors import ConfigError
 from repro_torch.kernels import ops
@@ -26,8 +26,8 @@ from repro_torch.storage import (ChunkMissing, LRUCacheBackend,
                                  StorageBackend, TamperedChunk,
                                  TieredBackend, WriteBuffer, make_backend)
 
-BACKENDS = ["memory", "log", "lru", "replicated", "sharded", "segment",
-            "tiered"]
+BACKENDS = ["memory", "log", "lru", "replicated", "sharded", "routing",
+            "segment", "tiered"]
 
 
 @pytest.fixture(autouse=True)
@@ -50,6 +50,8 @@ def backend(request, tmp_path):
         return ReplicatedBackend([MemoryBackend() for _ in range(3)], k=2)
     if name == "sharded":
         return ShardedBackend(4)
+    if name == "routing":
+        return Cluster(3).nodes[0].servlet.store
     # small segments / hot tier so multi-segment sealing, demotion and
     # promotion all run inside the shared suite
     if name == "segment":
@@ -154,7 +156,7 @@ def test_flush_is_safe(backend, rng):
 def test_delete_many_removes_everywhere(backend, rng):
     raws = chunks(rng, n=12)
     cids = backend.put_many(raws)
-    phys = backend.stats.physical_bytes
+    phys = _physical_bytes(backend)
     assert backend.delete_many(cids[:5]) == 5
     assert backend.has_many(cids) == [False] * 5 + [True] * 7
     with pytest.raises(KeyError):
@@ -163,7 +165,7 @@ def test_delete_many_removes_everywhere(backend, rng):
     st = backend.stats
     assert st.deletes == 5
     assert st.reclaimed_bytes > 0
-    assert 0 <= backend.stats.physical_bytes < phys
+    assert 0 <= _physical_bytes(backend) < phys
     assert backend.get_many(cids[5:]) == raws[5:]   # survivors intact
 
 
@@ -190,28 +192,53 @@ def test_reput_after_delete(backend, rng):
 def test_iter_cids_is_sweep_inventory(backend, rng):
     raws = chunks(rng, n=9)
     cids = backend.put_many(raws)
-    assert set(backend.iter_cids()) == set(cids)
+    assert _inventory(backend) == set(cids)
     backend.delete_many(cids[:4])
-    assert set(backend.iter_cids()) == set(cids[4:])
+    assert _inventory(backend) == set(cids[4:])
+
+
+def _inventory(backend):
+    """Cluster-wide sweep inventory.  A routing store's ``iter_cids``
+    is scoped to its OWN servlet's share (lazy, per-node) — the full
+    inventory is the union across servlets, and the shares must be
+    disjoint (each chunk swept exactly once in a cluster-wide walk)."""
+    cl = getattr(backend, "cluster", None)
+    if cl is None:
+        return set(backend.iter_cids())
+    shares = [set(n.servlet.store.iter_cids()) for n in cl.nodes]
+    union: set = set()
+    for s in shares:
+        assert not (union & s), "servlet inventories must be disjoint"
+        union |= s
+    return union
+
+
+def _physical_bytes(backend):
+    """Physical truth for a stack: cluster routing stores are write-side
+    views, so sum the node stores instead."""
+    cl = getattr(backend, "cluster", None)
+    if cl is not None:
+        return sum(n.store.stats.physical_bytes for n in cl.nodes)
+    return backend.stats.physical_bytes
 
 
 @all_backends
 def test_gc_collects_removed_branch_through_stack(backend, rng):
     """Acceptance: two branches, remove one, collect; the store shrinks
     and the surviving head reads back byte-identical — through every
-    backend stack."""
+    backend stack (memory/log/LRU/replicated/sharded/cluster routing)."""
     db = ForkBase(backend)
     keep = rng.bytes(60_000)
     db.put("k", FBlob(keep))
     db.fork("k", "master", "scratch")
     db.put("k", FBlob(rng.bytes(60_000)), "scratch")
     n0 = len(backend)
-    phys0 = backend.stats.physical_bytes
+    phys0 = _physical_bytes(backend)
     db.remove("k", "scratch")
     report = db.gc()
     assert report.swept_chunks > 0
     assert len(backend) < n0
-    assert 0 <= backend.stats.physical_bytes < phys0
+    assert 0 <= _physical_bytes(backend) < phys0
     assert db.get("k").blob().read() == keep
     # idempotent: a second collect sweeps nothing
     assert db.gc().swept_chunks == 0
@@ -235,6 +262,17 @@ def test_delete_invalidates_cache(backend, rng):
     assert not backend.has(cid)
     with pytest.raises(ChunkMissing):
         backend.get(cid)                            # not served from LRU
+
+
+@pytest.mark.parametrize("backend", ["routing"], indirect=True)
+def test_cluster_delete_updates_index_and_node_stats(backend, rng):
+    cl = backend.cluster
+    cids = backend.put_many(chunks(rng, n=40))
+    bytes0 = sum(n.stats.chunk_bytes for n in cl.nodes)
+    backend.delete_many(cids[:15])
+    assert all(c not in cl.index for c in cids[:15])
+    assert sum(n.stats.chunks for n in cl.nodes) == 25
+    assert sum(n.stats.chunk_bytes for n in cl.nodes) < bytes0
 
 
 def test_write_buffer_delete_counts_pending_and_inner_once(rng):
@@ -524,8 +562,8 @@ def test_replay_stats_match_fresh_reexecution(tmp_path):
 
 @pytest.fixture
 def verified_backend(request, tmp_path):
-    """The same seven stacks, with integrity verification enabled in
-    every leaf store."""
+    """The same eight stacks, with integrity verification enabled in
+    every leaf store (and on the cluster nodes)."""
     name = request.param
     vmem = lambda: MemoryBackend(verify=True)  # noqa: E731
     if name == "memory":
@@ -539,6 +577,8 @@ def verified_backend(request, tmp_path):
         return ReplicatedBackend([vmem() for _ in range(3)], k=2)
     if name == "sharded":
         return ShardedBackend(4, factory=vmem)
+    if name == "routing":
+        return Cluster(3, verify=True).nodes[0].servlet.store
     if name == "segment":
         return SegmentBackend(str(tmp_path / "segs"),
                               segment_bytes=8 << 10, verify=True)
@@ -563,6 +603,9 @@ def _leaf_stores(backend):
         return [leaf for s in backend.stores for leaf in _leaf_stores(s)]
     if isinstance(backend, ShardedBackend):
         return [leaf for s in backend.shards for leaf in _leaf_stores(s)]
+    cluster = getattr(backend, "cluster", None)
+    if cluster is not None:
+        return [leaf for n in cluster.nodes for leaf in _leaf_stores(n.store)]
     raise ConfigError(type(backend).__name__)
 
 
@@ -591,8 +634,8 @@ def _flip_leaf(leaf, cid) -> int:
 
 def _corrupt_everywhere(backend, cid):
     """Flip one byte in EVERY materialization of ``cid`` — all replicas,
-    the owning shard, any resident cache copy, AND the hot-tier copy (a
-    cache/hot tier must not be a verification hole)."""
+    the owning shard/node, any resident cache copy, AND the hot-tier
+    copy (a cache/hot tier must not be a verification hole)."""
     hit = 0
     for leaf in _leaf_stores(backend):
         hit += _flip_leaf(leaf, cid)
