@@ -18,7 +18,9 @@ Phases, in order; any failed check exits non-zero:
    of its 8192-byte tile and views of a stream at every offset 1..15 from
    its allocation's start; fphash_many takes chunks at
    every offset mod 16, chunks ending at the end of their buffer, batches
-   of one and an index level of 300,000 chunks of 1-200 B.
+   of one and an index level of 300,000 chunks of 1-200 B.  8 threads then
+   launch the single-string fphash kernel 500 times each at once, and the
+   launch counter must read exactly 4,000.
 3. The engine's main path at a real size: the paper's collaborative
    analytics dataset shape (5M records of 180 B on average: a 12 B key, two
    ints, variable text; ~0.9 GB, made from a numpy seed) put as one FBlob
@@ -104,6 +106,25 @@ Phases, in order; any failed check exits non-zero:
    adds; the line "cluster path: {...}" gives each part's numbers and
    launches.
 
+8. The model path (src/repro_torch/{configs,models,launch}, bf16 on the
+   card): (a) every assigned arch at its smoke config on the card, in
+   float32 and in bf16, against the CPU in float32 on the same params
+   (train_loss, prefill logits and 4 decode steps); (b) every arch at its
+   full widths with the depth cut to two layers (zamba2: one group of 6
+   Mamba layers; xlstm: all 12), prefill B=2 x 128 and 8 greedy decodes,
+   finite and in-vocab, a decode at S - 1 against prefill over S tokens
+   (the MoE archs and xlstm exempt, as in the reference); (c)
+   TinyLlama-1.1B at full width and depth through launch/serve.py's
+   functions, B=4, prompt 512, 64 greedy tokens: prefill seconds, decode
+   tokens a second, peak memory, each beside its bound, and the decode
+   at S against prefill over S + 1 at full depth; (d) one forward and
+   backward of its train_loss at B=1 x 2048 (tokens a second, peak
+   memory, finite gradients, loss in (0, 2 ln V)); SDPA against the
+   blocked attention at (c)'s and (d)'s shapes; the four engine examples
+   of examples/torch on the card.  No kernel of csrc runs on the model
+   path (the examples launch the bitmap through the engine's chunker);
+   the line "model path: {...}" gives each part.
+
 The line before the last is one JSON object with each kernel's launches on
 the main path (and on phases 5, 6 and 7), its time through its wrapper (ms),
 its kernel's device time alone (kernel_ms, from torch.profiler), its plain
@@ -134,6 +155,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # which also bounds its integer ALU rate (so the bound stays a lower bound)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# dense bf16 tensor-core rate (no sparsity): the model path's FLOP bounds
+PEAK_BF16_FLOPS_PER_S = 989e12
 
 N_GRID = (1, 47, 48, 255, 4991, 4992, 4993, 8191, 8192, 8193, 16_383,
           16_384, 16_385, 39936, 100_001)
@@ -318,6 +341,44 @@ def kernels_vs_plain(dev) -> dict[str, int]:
           f"at offsets 0..15, 2 batches of one, 300,000 chunks of 1..200 B: "
           f"identical to plain; {len(golden.FPHASH)} golden")
     return err
+
+
+def threaded_launches(dev, threads: int = 8, each: int = 500) -> int:
+    """``threads`` threads launch kernel #3 ``each`` times each on one
+    63-byte string at once; returns the launch count read after they all
+    joined, which must be exact (threads * each)."""
+    import threading
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fphash import fphash
+
+    x = torch.arange(63, dtype=torch.uint8, device=dev)
+    fphash(x)                             # the library is loaded before
+    synchronize(dev)
+    start = threading.Barrier(threads)
+    errors: list[BaseException] = []
+
+    def work():
+        try:
+            start.wait()
+            for _ in range(each):
+                fphash(x)
+        except Exception as e:            # reported by the check below
+            errors.append(e)
+
+    ops.reset_launches()
+    workers = [threading.Thread(target=work) for _ in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=300)
+    synchronize(dev)
+    n = ops.launches()["fphash"]
+    check(not errors and not any(w.is_alive() for w in workers),
+          f"a launching thread failed or hung: {errors[:1]}")
+    check(n == threads * each, f"{threads} threads x {each} launches of "
+                               f"fphash counted {n}")
+    return n
 
 
 # ------------------------------------------------------------ phase 3
@@ -1627,6 +1688,419 @@ def cluster_path(dev, ds: dict, want_uids: list[bytes],
                          "durable": durable.pop("launches")}}
 
 
+# ------------------------------------------------------------ phase 8
+
+# (a): the card against the CPU on the same params.  In float32 on both,
+# the parity tests' 1e-3 (tests/torch_model_parity.py) on logits and 2e-3
+# on the loss; in bfloat16 on the card, 1e-1 of the largest |logit| and 1e-1
+# on the loss: bf16 rounds weights and activations to 8 bits (2^-8
+# relative a step), which a CPU run of the smoke archs puts at 1-4% of
+# the largest logit, and routes an MoE token to another expert when its
+# top-k scores nearly tie (5.6% for olmoe on the CPU)
+SMOKE_F32_TOL, SMOKE_F32_LOSS_TOL = 1e-3, 2e-3
+SMOKE_BF16_TOL = 1e-1
+SMOKE_B, SMOKE_S, SMOKE_DECODES = 2, 64, 4
+# (b): full widths, depth cut; decode at position S - 1 against prefill
+# over S tokens, both in bf16 on the card: 5e-2 of the largest |logit|, 1e-1
+# with the int8 KV cache (a quantum of each cached row besides)
+WIDE_B, WIDE_S, WIDE_DECODES = 2, 128, 8
+WIDE_TOL, WIDE_QUANT_TOL = 5e-2, 1e-1
+# archs whose decode differs from prefill by design in the reference as
+# well: MoE capacity depends on the tokens in the call (B*S at prefill, B
+# at decode), and xLSTM's parallel form exponentiates q.k where its
+# recurrent form does not (ROADMAP, faults section)
+PREFILL_DECODE_EXEMPT = {"olmoe-1b-7b": "MoE capacity drops",
+                         "deepseek-moe-16b": "MoE capacity drops",
+                         "xlstm-125m": "parallel vs recurrent mLSTM"}
+# (c), (d): TinyLlama-1.1B at full width and depth
+SERVE_B, SERVE_S, SERVE_GEN = 4, 512, 64
+TRAIN_B, TRAIN_S = 1, 2048
+ATTN_TOL = 2e-2           # SDPA vs the blocked form, bf16 outputs of O(1)
+EXAMPLES = ("quickstart", "blockchain_demo", "collab_analytics", "wiki_demo")
+
+
+def depth_cut(cfg):
+    """(b)'s configuration: full widths, two layers; zamba2 one group of
+    its attn_every Mamba layers; xLSTM at its full 12 layers."""
+    if cfg.family == "ssm":
+        return cfg
+    if cfg.family == "hybrid":
+        return dataclasses.replace(cfg, n_layers=cfg.attn_every)
+    return dataclasses.replace(cfg, n_layers=2)
+
+
+def _leaves(tree) -> list:
+    from repro_torch.models import model as M
+    out = []
+    M.tree_map(out.append, tree)
+    return out
+
+
+def _tokens(vocab: int, shape, seed: int, dev) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, vocab, shape, generator=gen,
+                         dtype=torch.int32).to(dev)
+
+
+def _vision(cfg, B: int, dev, dtype=torch.bfloat16) -> dict:
+    if cfg.frontend != "vision":
+        return {}
+    gen = torch.Generator().manual_seed(7)
+    pe = torch.randn((B, cfg.n_patches, cfg.d_model), generator=gen)
+    return {"patch_embeds": pe.to(dtype).to(dev)}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor, vocab: int) -> float:
+    """max |got - want| over the real vocabulary / max |want|."""
+    g, w = got[..., :vocab].float().cpu(), want[..., :vocab].float().cpu()
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def _smoke_sequence(params, batch: dict, cfg, tokens=None):
+    """train_loss, then prefill and SMOKE_DECODES decode steps; the decode
+    inputs are ``tokens`` or, if None, this run's greedy tokens.  Returns
+    (loss, [logits of each step] on the CPU, the decode tokens)."""
+    from repro_torch.models import model as M
+    from repro_torch.shardings import Sharding
+
+    shd = Sharding(None, cfg)
+    dev = batch["tokens"].device
+    B = batch["tokens"].shape[0]
+    with torch.no_grad():
+        loss, _ = M.train_loss(params, batch, cfg, shd)
+        pb = {k: v for k, v in batch.items() if k != "labels"}
+        cache, logits = M.prefill(params, pb, cfg, shd,
+                                  cache_len=SMOKE_S + SMOKE_DECODES)
+        seq, used = [logits.float().cpu()], []
+        for i in range(SMOKE_DECODES):
+            tok = (torch.argmax(logits[:, :cfg.vocab], -1)[:, None].int()
+                   if tokens is None else tokens[i].to(dev))
+            used.append(tok.cpu())
+            pos = torch.full((B,), SMOKE_S + i, dtype=torch.int32, device=dev)
+            cache, logits = M.decode_step(params, cache,
+                                          {"tokens": tok, "pos": pos}, cfg,
+                                          shd)
+            seq.append(logits.float().cpu())
+    return float(loss), seq, used
+
+
+def smoke_on_card(dev) -> dict:
+    """(a) Every arch at its smoke config on ``dev`` against the CPU, on
+    the same params (init_params' bf16 leaves): the CPU in float32 is the
+    reference; the card in float32 and in bf16.  train_loss, prefill logits
+    and SMOKE_DECODES decode steps on the CPU's greedy tokens."""
+    from repro_torch.configs import ARCHS, smoke
+    from repro_torch.models import model as M
+
+    out = {}
+    for name in sorted(ARCHS):
+        cfg = smoke(ARCHS[name])
+        params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                               shards=4, device=dev)
+        St = SMOKE_S - (cfg.n_patches if cfg.frontend == "vision" else 0)
+        toks = _tokens(cfg.vocab, (SMOKE_B, St), 1, "cpu")
+        batch = {"tokens": toks, "labels": toks,
+                 **_vision(cfg, SMOKE_B, "cpu", torch.float32)}
+        card = {k: v.to(dev) for k, v in batch.items()}
+        ref = M.tree_map(lambda t: t.float().cpu(), params)
+        rloss, rseq, toks_used = _smoke_sequence(ref, batch, cfg)
+        row = {"loss_cpu": rloss}
+        for dt, tol, ltol in (("f32", SMOKE_F32_TOL, SMOKE_F32_LOSS_TOL),
+                              ("bf16", SMOKE_BF16_TOL, SMOKE_BF16_TOL)):
+            p = params if dt == "bf16" else M.tree_map(
+                lambda t: t.float(), params)
+            loss, seq, _ = _smoke_sequence(p, card, cfg, toks_used)
+            if dt == "f32":
+                err = max(float((a[:, :cfg.vocab] - b[:, :cfg.vocab]
+                                 ).abs().max()) for a, b in zip(seq, rseq))
+            else:
+                err = max(rel_err(a, b, cfg.vocab) for a, b in zip(seq, rseq))
+            row[f"loss_{dt}"], row[f"err_{dt}"] = loss, err
+            check(abs(loss - rloss) <= ltol,
+                  f"{name}: the card's {dt} loss {loss} differs from the "
+                  f"CPU's {rloss}")
+            check(err <= tol, f"{name}: the card's {dt} logits differ from "
+                              f"the CPU's by {err:.5f}")
+        out[name] = row
+    return out
+
+
+def full_width(dev, make_cfg=depth_cut, B: int = WIDE_B, S: int = WIDE_S,
+               decodes: int = WIDE_DECODES) -> dict:
+    """(b) Every arch at its full widths, depth cut by ``make_cfg``: prefill
+    B x S, then ``decodes`` greedy decode steps, in bf16 on ``dev``;
+    finite logits and in-vocab greedy tokens; and prefill over the first
+    S - 1 tokens then a decode of token S - 1 against the prefill over S
+    (S - 1 and S, not S and S + 1: zamba2's SSD scan takes a prompt of
+    min(128, S) chunks only)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import model as M
+    from repro_torch.shardings import Sharding
+
+    out = {}
+    for name in sorted(ARCHS):
+        cfg = make_cfg(ARCHS[name])
+        shd = Sharding(None, cfg)
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), shards=4, device=dev)
+        nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        P = cfg.n_patches if cfg.frontend == "vision" else 0
+        toks = _tokens(cfg.vocab, (B, S), 2, dev)
+        vis = _vision(cfg, B, dev)
+        synchronize(dev)
+        t = time.perf_counter()
+        with torch.no_grad():
+            cache, full = M.prefill(params, {"tokens": toks, **vis}, cfg,
+                                    shd, cache_len=P + S + decodes)
+            synchronize(dev)
+            prefill_s = time.perf_counter() - t
+            logits = full
+            t = time.perf_counter()
+            for i in range(decodes):
+                check(bool(torch.isfinite(logits.float()).all()),
+                      f"{name}: non-finite logits")
+                tok = torch.argmax(logits, -1)[:, None].int()
+                check(int(tok.max()) < cfg.vocab,
+                      f"{name}: greedy token outside the vocabulary")
+                pos = torch.full((B,), P + S + i, dtype=torch.int32,
+                                 device=dev)
+                cache, logits = M.decode_step(params, cache,
+                                              {"tokens": tok, "pos": pos},
+                                              cfg, shd)
+            synchronize(dev)
+            decode_s = time.perf_counter() - t
+            check(bool(torch.isfinite(logits.float()).all()),
+                  f"{name}: non-finite logits")
+            short, _ = M.prefill(params, {"tokens": toks[:, :-1], **vis},
+                                 cfg, shd, cache_len=P + S)
+            _, step = M.decode_step(params, short, {
+                "tokens": toks[:, -1:], "pos": torch.full(
+                    (B,), P + S - 1, dtype=torch.int32, device=dev)},
+                cfg, shd)
+        agree = rel_err(step, full, cfg.vocab)
+        tol = WIDE_QUANT_TOL if cfg.kv_quant else WIDE_TOL
+        exempt = PREFILL_DECODE_EXEMPT.get(name)
+        out[name] = {"layers": cfg.n_layers, "param_bytes": nbytes,
+                     "prefill_s": prefill_s,
+                     "decode_step_ms": decode_s / decodes * 1e3,
+                     "decode_vs_prefill": agree,
+                     "argmax_equal": bool(torch.equal(
+                         step[:, :cfg.vocab].argmax(-1),
+                         full[:, :cfg.vocab].argmax(-1))),
+                     **({"exempt": exempt} if exempt else {})}
+        check(exempt is not None or agree <= tol,
+              f"{name}: decode at S - 1 differs from prefill over S by "
+              f"{agree:.4f} of the largest logit")
+        del params, cache, short
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def attention_forms(dev, shapes) -> dict:
+    """flash_attention's CUDA route (scaled_dot_product_attention) against
+    the blocked online softmax at each (B, S, H, dh) of ``shapes``, bf16."""
+    from repro_torch.models import layers
+
+    out = {}
+    for B, S, H, dh in shapes:
+        gen = torch.Generator().manual_seed(S)
+        q, k, v = (torch.randn((B, S, H, dh), generator=gen).to(
+            torch.bfloat16).to(dev) for _ in range(3))
+        fused = layers.sdpa_attention(q, k, v)
+        blocked = layers.blocked_attention(q, k, v)
+        err = float((fused.float() - blocked.float()).abs().max())
+        check(err <= ATTN_TOL, f"SDPA differs from the blocked form by {err}"
+                               f" at {(B, S, H, dh)}")
+        row = {"max_abs_err": err}
+        if dev.type == "cuda":
+            row["sdpa_ms"] = cuda_ms(lambda: layers.sdpa_attention(q, k, v),
+                                     10)
+            row["blocked_ms"] = cuda_ms(
+                lambda: layers.blocked_attention(q, k, v), 3)
+        out[f"{B}x{S}x{H}x{dh}"] = row
+    return out
+
+
+def device_share(fn, reps: int) -> dict:
+    """Where ``reps`` calls of fn() spend their time, under torch.profiler:
+    the wall time a call (with the profiler's own host cost), the device
+    time of its kernels and copies, their ratio (the card's busy share)
+    and the device operations a call launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_s = sum(e.self_device_time_total for e in ev) / 1e6
+    return {"wall_ms": wall / reps * 1e3, "device_ms": dev_s / reps * 1e3,
+            "busy_share": dev_s / wall,
+            "device_ops": sum(e.count for e in ev) / reps}
+
+
+def serve_tinyllama(dev, cfg, B: int = SERVE_B, S: int = SERVE_S,
+                    gen: int = SERVE_GEN) -> dict:
+    """(c) launch/serve.py's functions on ``cfg``: a warm-up run, then
+    prefill B x S and ``gen`` greedy tokens, timed; the decode at S against
+    prefill over S + 1 tokens at full depth; peak device memory."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.shardings import Sharding
+
+    shd = Sharding(None, cfg)
+    rng = torch.Generator(device=dev).manual_seed(0)
+    params = M.init_params(cfg, rng, shards=4, device=dev)
+    batch = serve.make_batch(cfg, B, S, rng, dev)
+    with torch.no_grad():
+        serve.generate(params, batch, cfg, shd, 4)              # warm-up
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        run = serve.generate(params, batch, cfg, shd, gen)
+        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else None)
+        toks = run["tokens"]
+        check(int(toks.max()) < cfg.vocab
+              and bool(torch.isfinite(run["logits"].float()).all()),
+              "tinyllama: greedy decode left the vocabulary or the logits "
+              "are not finite")
+        cache, _ = M.prefill(params, batch, cfg, shd, cache_len=S + 1)
+        _, step = M.decode_step(params, cache, {
+            "tokens": toks[:, :1], "pos": torch.full(
+                (B,), S, dtype=torch.int32, device=dev)}, cfg, shd)
+        _, full = M.prefill(params, {"tokens": torch.cat(
+            [batch["tokens"], toks[:, :1]], 1)}, cfg, shd)
+        profiles = {} if dev.type != "cuda" else {
+            "prefill_profile": device_share(lambda: M.prefill(
+                params, batch, cfg, shd, cache_len=S + gen), 2),
+            "decode_profile": device_share(lambda: M.decode_step(
+                params, cache, {"tokens": toks[:, :1], "pos": torch.full(
+                    (B,), S, dtype=torch.int32, device=dev)}, cfg, shd), 5)}
+    agree = rel_err(step, full, cfg.vocab)
+    check(agree <= WIDE_TOL, f"tinyllama: decode at S differs from prefill "
+                             f"over S + 1 by {agree:.4f} of the largest logit")
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    step_s = run["decode_s"] / (gen - 1)
+    return {**profiles, "batch": B, "prompt": S, "gen": gen, "param_bytes": nbytes,
+            "prefill_s": run["prefill_s"],
+            "prefill_bound_s": 2 * cfg.params_count() * B * S
+            / PEAK_BF16_FLOPS_PER_S,
+            "decode_s": run["decode_s"], "decode_step_ms": step_s * 1e3,
+            "decode_tok_s": B * (gen - 1) / run["decode_s"],
+            "decode_step_bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "decode_tok_s_bound": B * PEAK_BYTES_PER_S / nbytes,
+            "peak_bytes": peak, "decode_vs_prefill": agree,
+            "sample": toks[0, :12].tolist()}
+
+
+def train_tinyllama(dev, cfg, B: int = TRAIN_B, S: int = TRAIN_S) -> dict:
+    """(d) One forward and backward of train_loss from a seeded init (a
+    warm-up pass first): tokens a second, peak memory, finite gradients
+    and a loss in (0, 2 ln V)."""
+    from repro_torch.models import model as M
+    from repro_torch.shardings import Sharding
+
+    shd = Sharding(None, cfg)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                           shards=4, device=dev)
+    leaves = [t.requires_grad_() for t in _leaves(params)
+              if t.is_floating_point()]
+    toks = _tokens(cfg.vocab, (B, S), 3, dev)
+    batch = {"tokens": toks, "labels": toks}
+    out = {"batch": B, "seq": S}
+    for timed in (False, True):
+        for t in leaves:
+            t.grad = None
+        if timed and dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        synchronize(dev)
+        t0 = time.perf_counter()
+        loss, _ = M.train_loss(params, batch, cfg, shd)
+        loss.backward()
+        synchronize(dev)
+        out["step_s"] = time.perf_counter() - t0
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                         if dev.type == "cuda" else None)
+    out["loss"] = loss.item()
+    if dev.type == "cuda":
+        def step():
+            lo, _ = M.train_loss(params, batch, cfg, shd)
+            lo.backward()
+        out["profile"] = device_share(step, 1)
+    out["tok_s"] = B * S / out["step_s"]
+    out["step_bound_s"] = 6 * cfg.params_count() * B * S \
+        / PEAK_BF16_FLOPS_PER_S
+    check(0 < out["loss"] < 2 * np.log(cfg.vocab),
+          f"tinyllama: loss {out['loss']} outside (0, 2 ln V)")
+    gn = sum(float(t.grad.float().pow(2).sum()) for t in leaves)
+    check(np.isfinite(gn) and gn > 0, f"tinyllama: grad norm^2 {gn}")
+    out["grad_norm"] = float(np.sqrt(gn))
+    return out
+
+
+def run_examples(dev) -> dict:
+    """The four engine examples of examples/torch, each run in this process
+    on the engine's device (its main(), output captured): seconds and the
+    number of lines each printed."""
+    import io
+    import runpy
+
+    out = {}
+    for name in EXAMPLES:
+        mod = runpy.run_path(os.path.join(ROOT, "examples", "torch",
+                                          f"{name}.py"), run_name=name)
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod["main"]()
+        synchronize(dev)
+        out[name] = {"s": time.perf_counter() - t,
+                     "lines": len(buf.getvalue().splitlines())}
+    return out
+
+
+def model_path(dev, *, make_cfg=depth_cut, serve_cfg=None, wide=None,
+               serve=None, train=None, attn_shapes=None) -> dict:
+    """Phase 8 on ``dev``: (a) every arch at its smoke config against the
+    CPU, (b) every arch at full width with the depth cut, (c) TinyLlama-1.1B
+    served at full width and depth, (d) its forward and backward, SDPA
+    against the blocked attention at (c)'s and (d)'s shapes, and the four
+    engine examples.  The keyword arguments shrink the parts for a
+    rehearsal on the CPU."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+
+    tl = serve_cfg or ARCHS["tinyllama-1.1b"]
+    parts = {}
+    ops.reset_launches()
+    for part, fn in (
+            ("smoke", lambda: smoke_on_card(dev)),
+            ("full_width", lambda: full_width(dev, make_cfg, **(wide or {}))),
+            ("serve", lambda: serve_tinyllama(dev, tl, **(serve or {}))),
+            ("train", lambda: train_tinyllama(dev, tl, **(train or {}))),
+            ("attention", lambda: attention_forms(dev, attn_shapes or (
+                (SERVE_B, SERVE_S, tl.n_heads, tl.dh),
+                (TRAIN_B, TRAIN_S, tl.n_heads, tl.dh))))):
+        t = time.perf_counter()
+        parts[part] = fn()
+        synchronize(dev)
+        parts[part + "_s"] = time.perf_counter() - t
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    parts["model_launches"] = ops.launches()
+    ops.reset_launches()
+    parts["examples"] = run_examples(dev)
+    parts["example_launches"] = ops.launches()
+    return parts
+
+
 # ------------------------------------------------------------ breakdown
 
 def profile_put(v1: bytes) -> dict:
@@ -1833,6 +2307,9 @@ def main() -> int:
 
     t = time.perf_counter()
     err = kernels_vs_plain(dev)
+    counted = threaded_launches(dev)
+    print(f"launch counter: 8 threads x 500 fphash launches counted "
+          f"{counted}")
     print(f"phase 2 (kernels vs plain): {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -1984,6 +2461,11 @@ def main() -> int:
             "distribution": dur["distribution"], "part_s": dur["part_s"]},
         "max_abs_err": cp7["max_abs_err"],
         "launches": cp7["launches"]}))
+
+    t = time.perf_counter()
+    m8 = model_path(dev)
+    print(f"phase 8 (model path): {time.perf_counter() - t:.1f} s")
+    print("model path: " + json.dumps(m8))
     kernels = []
     for row in timed:
         src, replaces = SOURCES[row["name"]]

@@ -14,6 +14,7 @@ import torch
 from ..core import rolling
 from ..errors import ConfigError
 from . import build
+from .counter import LAUNCHES
 
 MAX_WINDOW = 128        # the kernel stages the 128 bytes before each tile
 
@@ -48,8 +49,6 @@ def boundary_bitmap(data: torch.Tensor, window: int = 48, q: int = 12,
                      (1 << q) - 1, (seed * rolling.GOLD) & rolling.MASK32,
                      stream)
         build.check(err, "boundary_bitmap_cuda")
-        boundary_bitmap.launches += 1
+        LAUNCHES.bump("boundary_bitmap")
     return out.view(torch.bool)
 
-
-boundary_bitmap.launches = 0

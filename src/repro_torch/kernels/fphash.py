@@ -14,6 +14,7 @@ import torch
 
 from ..errors import ConfigError
 from . import build, ref
+from .counter import LAUNCHES
 
 
 def _device_of(*tensors: torch.Tensor) -> torch.device:
@@ -58,7 +59,7 @@ def fphash_many(data: torch.Tensor, offsets: torch.Tensor,
             err = fn(data.data_ptr(), offsets.data_ptr(), lengths.data_ptr(),
                      n, out.data_ptr(), stream)
         build.check(err, "fphash_many_cuda")
-        fphash_many.launches += 1
+        LAUNCHES.bump("fphash_many")
     return out
 
 
@@ -75,9 +76,6 @@ def fphash(data: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(data.data_ptr(), data.numel(), out.data_ptr(), stream)
     build.check(err, "fphash_one_cuda")
-    fphash.launches += 1
+    LAUNCHES.bump("fphash")
     return out
 
-
-fphash_many.launches = 0
-fphash.launches = 0

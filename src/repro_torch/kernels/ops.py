@@ -26,6 +26,7 @@ import torch
 from ..errors import ConfigError
 from . import chunker as _kchunker
 from . import fphash as _kfphash
+from .counter import LAUNCHES
 from .ref import boundary_bitmap_ref, fphash_ref
 
 _DEVICE = torch.device("cuda")
@@ -44,12 +45,20 @@ def device() -> torch.device:
     return _DEVICE
 
 
-def to_device(data) -> torch.Tensor:
-    """A host byte stream (numpy uint8 array, bytes) as a uint8 tensor on
-    the engine's device."""
+def ready_device() -> torch.device:
+    """The engine's device, after checking that it exists: a CUDA device
+    without a GPU raises ConfigError rather than falling back to the
+    CPU."""
     if _DEVICE.type == "cuda" and not torch.cuda.is_available():
         raise ConfigError("engine device is CUDA but no GPU is available; "
                           "call kernels.ops.set_device('cpu') for the CPU")
+    return _DEVICE
+
+
+def to_device(data) -> torch.Tensor:
+    """A host byte stream (numpy uint8 array, bytes) as a uint8 tensor on
+    the engine's device."""
+    dev = ready_device()
     if isinstance(data, (bytes, bytearray, memoryview)):
         data = np.frombuffer(data, dtype=np.uint8)
     data = np.ascontiguousarray(data, dtype=np.uint8)
@@ -57,7 +66,7 @@ def to_device(data) -> torch.Tensor:
         # a view of immutable bytes: the tensor is only ever read
         warnings.simplefilter("ignore", UserWarning)
         host = torch.from_numpy(data)
-    return host.to(_DEVICE)
+    return host.to(dev)
 
 
 # ---------------------------------------------------------------- chunker
@@ -125,16 +134,12 @@ def use_kernel_hash(enable: bool = True) -> None:
 
 def reset_launches() -> None:
     """Zero the launch counter of every kernel wrapper."""
-    for fn in (_kchunker.boundary_bitmap, _kfphash.fphash_many,
-               _kfphash.fphash):
-        fn.launches = 0
+    LAUNCHES.reset()
 
 
 def launches() -> dict[str, int]:
     """Launch count of every kernel wrapper since the last reset."""
-    return {"boundary_bitmap": _kchunker.boundary_bitmap.launches,
-            "fphash_many": _kfphash.fphash_many.launches,
-            "fphash": _kfphash.fphash.launches}
+    return LAUNCHES.snapshot()
 
 
 __all__ = ["boundary_bitmap", "content_hash", "use_kernel_chunker",
