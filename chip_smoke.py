@@ -55,12 +55,18 @@ Phases, in order; any failed check exits non-zero:
    the head verified against its uid), a restore of run onto the card,
    sweep removed and run pruned to its last checkpoint (stop-the-world
    GC, then sync: the compaction), a restore of only the edited leaves;
-   then the training controller in memory at 2 layers (6 steps, a
-   checkpoint every 2, a failure at step 3) against a run without
-   failure.  It checks step 1's new bytes (under 1.05 x the edited bytes
-   + 1 MiB), every restore and the replay bit for bit, the GC's swept,
-   reclaimed and compacted bytes and the disk bytes falling, the
-   params/embed root cid against the plain versions', and that every
+   then the training controller (run_resilient, in memory) on the real
+   train step and the whole train state (params, fp32 master, mu, nu,
+   step; ~3.07 GB a save) of TinyLlama-1.1B at full width cut to 2
+   layers: 4 steps of 4 x 512 SyntheticLM tokens, a checkpoint every 2, a
+   failure at step 3 (3 saves, 1 restore), under the controller's
+   deterministic algorithms, against a plain loop of the same step that
+   saves nothing.  It checks step 1's new bytes (under 1.05 x the edited
+   bytes + 1 MiB), every restore and the replay bit for bit, the GC's
+   swept, reclaimed and compacted bytes and the disk bytes falling, the
+   params/embed root cid and every root cid of the controller's last
+   checkpoint against the plain versions' (the bitmap and fphash_many
+   held against theirs on those leaves and chunks), and that every
    kernel launched; the line "checkpoint path: {...}" gives the numbers.
    --ckpt-breakdown adds a mark timed alone before the GC (mark_s) and a
    save of step 0 into an in-memory store under torch.profiler
@@ -124,9 +130,29 @@ Phases, in order; any failed check exits non-zero:
    of examples/torch on the card.  No kernel of csrc runs on the model
    path (the examples launch the bitmap through the engine's chunker);
    the line "model path: {...}" gives each part.
+9. The training path (src/repro_torch/{train,launch/train.py}): (a)
+   TinyLlama-1.1B at full width and depth, its whole train state (15.4
+   GB) from init_train_state on the card, make_train_step on
+   SyntheticLM.prefetch batches of 1 x 2048: a warm-up step, 3 timed
+   steps, 3 more under the controller's deterministic algorithms (their
+   cost; medians), the gradients of two deterministic runs on one batch
+   (they must agree), apply_adamw alone, each beside its bound, peak
+   memory and the busy share under torch.profiler; the loss in (0, 2 ln
+   V), every param moved, params == master cast to bf16; (b) microbatch
+   4 against 1 from one state at the 2-layer cut, B=4 x 512: params
+   within the reference's 3e-2, gnorm within 1e-2 and loss within 1e-3
+   relative, at most 5% of a leaf's step-1 directions turned; (c)
+   launch/train.py's main (20 smoke steps) and examples/torch/
+   train_with_forkbase_ckpt.py (40 steps, 2 injected failures) on the
+   card: the loss falls, restarts equal the failures, and each run's last
+   checkpoint has the plain versions' root cids (the bitmap held against
+   its plain version on every leaf).  The line "training path: {...}"
+   gives each part and (c)'s launches (the bitmap, through the
+   checkpoints).
 
 The line before the last is one JSON object with each kernel's launches on
-the main path (and on phases 5, 6 and 7), its time through its wrapper (ms),
+the main path (and on phases 5, 6, 7 and 9), its largest |kernel - plain|
+over phases 2, 5, 7 and 9, its time through its wrapper (ms),
 its kernel's device time alone (kernel_ms, from torch.profiler), its plain
 version's time and its bound; the last line is {"ok": true, "device":
 {...}}.  Needs no network.  Exits non-zero, printing no result, when no
@@ -492,21 +518,24 @@ def main_path(ds: dict) -> dict:
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """fphash cids and boundary bitmaps by both kernels' plain versions on
-    the device (no kernel launches); sha256 and the kernels after."""
+def plain_kernels(fphash: bool = True):
+    """Boundary bitmaps by the kernel's plain version on the device and,
+    with ``fphash``, fphash cids by theirs (no kernel launches); the
+    kernel chunker after, and sha256 after fphash cids."""
     from repro_torch.core import hashing
     from repro_torch.kernels import ops, ref
 
     ops.use_kernel_chunker(False)
-    hashing.set_default_hash(
-        lambda b: ops.hash_many_with(ref.fphash_many_ref, [bytes(b)])[0],
-        lambda blobs: ops.hash_many_with(ref.fphash_many_ref, blobs))
+    if fphash:
+        hashing.set_default_hash(
+            lambda b: ops.hash_many_with(ref.fphash_many_ref, [bytes(b)])[0],
+            lambda blobs: ops.hash_many_with(ref.fphash_many_ref, blobs))
     try:
         yield
     finally:
         ops.use_kernel_chunker(True)
-        hashing.use_sha256()
+        if fphash:
+            hashing.use_sha256()
 
 
 def plain_root(v1: bytes) -> bytes:
@@ -515,6 +544,53 @@ def plain_root(v1: bytes) -> bytes:
 
     with plain_kernels():
         return POSTree.build_bytes(ChunkStore(), v1).root_cid
+
+
+def saved_vs_plain(cs, branch: str, state, dev, fphash: bool) -> dict:
+    """The head of ``branch`` in CheckpointStore ``cs``, which saved
+    ``state``, against the plain versions on the same bytes on ``dev``:
+    every leaf rebuilt as a POS-Tree with the plain bitmap (and plain
+    fphash cids with ``fphash``, else the engine's sha256) must have the
+    manifest's root cid.  Each kernel the save ran, at the shapes it ran
+    them, against its plain version: the bitmap on every leaf's bytes
+    and, with ``fphash``, fphash_many on every chunk of each tree (one
+    batch a leaf).  Returns the largest |kernel - plain| of each, with
+    the leaves and bytes compared."""
+    from repro_torch.ckpt.store import _leaf_paths, _leaf_record
+    from repro_torch.core import ChunkStore, POSTree, rolling
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.chunker import boundary_bitmap
+    from repro_torch.kernels.fphash import fphash_many
+
+    manifest = cs.db.get(cs.key, branch).map()
+    leaves = _leaf_paths(state)
+    check(sorted(k.decode() for k, _ in manifest.items())
+          == sorted(n for n, _ in leaves),
+          f"the manifest of {branch} names other leaves than the state's")
+    err = {"boundary_bitmap": 0, **({"fphash_many": 0} if fphash else {})}
+    nbytes = 0
+    for name, leaf in leaves:
+        x = leaf.detach().reshape(-1).view(torch.uint8).to(dev)
+        err["boundary_bitmap"] = max(err["boundary_bitmap"], max_err(
+            boundary_bitmap(x), rolling.boundary_bitmap(x, 48, 12)))
+        raw = _leaf_record(leaf)[0]
+        nbytes += len(raw)
+        store = ChunkStore()
+        with plain_kernels(fphash):
+            root = POSTree.build_bytes(store, raw).root_cid
+        check(root.hex() == json.loads(manifest.get(name.encode()))["cid"],
+              f"{branch}: the plain versions give {name} another root cid")
+        if fphash:
+            cids = list(store.iter_cids())
+            got = ops.hash_many_with(fphash_many, store.get_many(cids))
+            err["fphash_many"] = max(err["fphash_many"], max_err(
+                torch.frombuffer(bytearray(b"".join(got)), dtype=torch.uint8),
+                torch.frombuffer(bytearray(b"".join(cids)),
+                                 dtype=torch.uint8)))
+    check(not any(err.values()),
+          f"{branch}: a kernel differs from its plain version on the saved "
+          f"state: {err}")
+    return {"max_abs_err": err, "leaves": len(leaves), "bytes": nbytes}
 
 
 # ------------------------------------------------------------ phase 4
@@ -656,6 +732,12 @@ TINYLLAMA_PARAMS = (
 )
 TINYLLAMA_LAYERS = 22
 TINYLLAMA_PARAM_BYTES = 2_200_281_088
+# the controller's run: TinyLlama-1.1B at full width cut to 2 layers, its
+# whole train state (~3.07 GB a save), 4 steps of 4 x 512 tokens, a
+# checkpoint every 2 steps and a failure at step 3: 3 saves, 1 restore
+CTL_LAYERS = 2
+CTL_BATCH = (4, 512)
+CTL_STEPS, CTL_CKPT_EVERY, CTL_FAIL_AT = 4, 2, (3,)
 
 
 def synchronize(dev) -> None:
@@ -734,31 +816,76 @@ def trees_equal(got: dict, want: dict) -> bool:
                     for (_, a), (_, b) in zip(g, w)))
 
 
-class TokenData:
-    """Token batches of a vocabulary, deterministic in (seed, step)."""
-
-    def __init__(self, vocab: int, seed: int = 0):
-        self.vocab = vocab
-        self.seed = seed
-
-    def batch_at(self, step: int) -> dict:
-        rng = np.random.default_rng((self.seed << 32) ^ step)
-        return {"tokens": rng.integers(0, self.vocab, (8, 256),
-                                       dtype=np.int32)}
+def state_bytes(state) -> int:
+    return sum(x.numel() * x.element_size() for _, x in tree_leaves(state))
 
 
-def layer_step(state: dict, batch: dict):
-    """A deterministic training step on the card: every stacked layer
-    tensor moves by an elementwise function of itself and of the batch's
-    mean token (no reduction order to vary between runs)."""
-    s = batch["tokens"].float().mean() / 32000
+def _tinyllama():
+    from repro_torch.configs import ARCHS
+    return ARCHS["tinyllama-1.1b"]
 
-    def upd(w):
-        f = w.float()
-        return (f + 1e-3 * s * torch.sin(f)).to(w.dtype)
 
-    return ({"params": map_layers(state["params"], upd),
-             "opt": {"step": state["opt"]["step"] + 1}}, {"loss": s})
+def controller_replay(dev, cfg, B: int, S: int) -> dict:
+    """The training controller on ``cfg``'s whole train state (params, fp32
+    master, mu, nu, step): ``run_resilient`` (an in-memory store, the
+    engine's cid hash, fphash here) over CTL_STEPS real train steps on
+    SyntheticLM batches of B x S, a checkpoint every CTL_CKPT_EVERY,
+    failures at CTL_FAIL_AT; against a plain loop of the same step over
+    the same batches that saves nothing, under the controller's
+    ``deterministic()``.  The launch counters are zeroed before the
+    controller and read after it; then its last checkpoint (the final
+    state) is held against the plain versions (``saved_vs_plain``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import deterministic, run_resilient
+    from repro_torch.shardings import Sharding
+    from repro_torch.train import (AdamWConfig, SyntheticLM,
+                                   init_train_state, make_train_step,
+                                   shard_batch)
+
+    shd = Sharding(None, cfg)
+    init = init_train_state(cfg, torch.Generator(device=dev).manual_seed(2),
+                            shards=4, device=dev)
+    data = SyntheticLM(cfg.vocab, S, B, seed=3)
+    step = make_train_step(cfg, shd, AdamWConfig(
+        lr=3e-4, warmup_steps=1, total_steps=CTL_STEPS))
+    out = {"layers": cfg.n_layers, "batch": B, "seq": S, "steps": CTL_STEPS,
+           "ckpt_every": CTL_CKPT_EVERY, "fail_at": list(CTL_FAIL_AT),
+           "state_bytes": state_bytes(init)}
+    ops.reset_launches()
+    t = time.perf_counter()
+    failed = run_resilient(step, init, data, n_steps=CTL_STEPS,
+                           ckpt_every=CTL_CKPT_EVERY, fail_at=CTL_FAIL_AT)
+    synchronize(dev)
+    out["controller_s"] = time.perf_counter() - t
+    out["controller_launches"] = ops.launches()
+    t = time.perf_counter()
+    plain = init
+    with deterministic():
+        for i in range(CTL_STEPS):
+            plain, _ = step(plain, shard_batch(data.batch_at(i)))
+    synchronize(dev)
+    out["plain_s"] = time.perf_counter() - t
+    history = failed.ckpt.history("run", 1 << 20)
+    out["saves"] = len(history)
+    out["restarts"] = failed.restarts
+    out["losses"] = [loss for _, loss in failed.metrics_log]
+    check(failed.restarts == len(set(CTL_FAIL_AT))
+          and failed.step == CTL_STEPS,
+          f"the controller restarted {failed.restarts} times and stopped at "
+          f"step {failed.step}")
+    check(trees_equal(failed.state, plain),
+          "the controller's replayed run differs from the plain loop")
+    after = dict(tree_leaves(plain["params"]))
+    still = [n for n, x in tree_leaves(init["params"])
+             if torch.equal(x, after[n])]
+    check(not still, f"the train steps left params unchanged: {still}")
+    check(history[0][1]["step"] == CTL_STEPS,
+          f"the last checkpoint is of step {history[0][1]['step']}")
+    t = time.perf_counter()
+    out["vs_plain"] = saved_vs_plain(failed.ckpt, "run", failed.state, dev,
+                                     fphash=True)
+    out["vs_plain"]["s"] = time.perf_counter() - t
+    return out
 
 
 def profile_save(state: dict) -> dict:
@@ -792,7 +919,7 @@ def profile_save(state: dict) -> dict:
 
 def checkpoint_path(dev, n_layers: int = TINYLLAMA_LAYERS,
                     table=TINYLLAMA_PARAMS, breakdown: bool = False,
-                    **store_kw) -> dict:
+                    ctl_cfg=None, ctl_batch=None, **store_kw) -> dict:
     """Phase 5: the params of ``table`` at ``n_layers`` (and opt/step) on
     ``dev``, checkpointed through ``CheckpointStore(ForkBase(durable_root=
     <fresh temporary directory>))`` with fphash cids: save step 0 on
@@ -800,9 +927,10 @@ def checkpoint_path(dev, n_layers: int = TINYLLAMA_LAYERS,
     step 0, sync and close; reopen, restore run on ``dev``; remove sweep,
     prune run to its last checkpoint (stop-the-world GC) and sync (the
     compaction); restore only the edited leaves.  Then the training
-    controller in memory at 2 layers: 6 steps, a checkpoint every 2, a
-    failure at step 3, against a run without failure.  Every check fails
-    the run; the directory is removed at the end.  ``breakdown`` adds two
+    controller (``controller_replay``) on the whole train state of
+    ``ctl_cfg`` (default TinyLlama-1.1B at full width, cut to 2 layers)
+    with batches of ``ctl_batch`` (B, S), against a plain loop.  Every
+    check fails the run; the directory is removed at the end.  ``breakdown`` adds two
     diagnostics no check reads: a mark alone before the prune's GC
     (``mark_s``; it warms the store's caches for that GC) and
     ``profile_save`` (on the card).
@@ -816,7 +944,6 @@ def checkpoint_path(dev, n_layers: int = TINYLLAMA_LAYERS,
     from repro_torch.core import ForkBase, hashing
     from repro_torch.gc import mark
     from repro_torch.kernels import ops
-    from repro_torch.runtime import run_resilient
 
     out: dict = {"layers": n_layers}
     root = tempfile.mkdtemp(prefix="forkbase-ckpt-")
@@ -929,24 +1056,10 @@ def checkpoint_path(dev, n_layers: int = TINYLLAMA_LAYERS,
             out["save_profile"] = profile_save(state0)
         del state0
 
-        init = ckpt_state(table, 2, dev, seed=2)
-        data = TokenData(32000, seed=3)
-        ops.reset_launches()
-        t = time.perf_counter()
-        clean = run_resilient(layer_step, init, data, n_steps=6,
-                              ckpt_every=2)
-        failed = run_resilient(layer_step, init, data, n_steps=6,
-                               ckpt_every=2, fail_at=(3,))
-        synchronize(dev)
-        out["controller_s"] = time.perf_counter() - t
-        out["controller_launches"] = ops.launches()
-        out["restarts"] = failed.restarts
-        check(failed.restarts == 1 and failed.step == clean.step == 6,
-              f"the controller restarted {failed.restarts} times")
-        check(trees_equal(failed.state, clean.state),
-              "the replayed run differs from the run without failure")
-        check(not trees_equal(clean.state, init),
-              "the controller's steps changed nothing")
+        ctl = controller_replay(dev, ctl_cfg or dataclasses.replace(
+            _tinyllama(), n_layers=CTL_LAYERS), *(ctl_batch or CTL_BATCH))
+        out["controller_launches"] = ctl.pop("controller_launches")
+        out["controller"] = ctl
     finally:
         hashing.use_sha256()
         shutil.rmtree(root, ignore_errors=True)
@@ -2101,6 +2214,290 @@ def model_path(dev, *, make_cfg=depth_cut, serve_cfg=None, wide=None,
     return parts
 
 
+# ------------------------------------------------------------ phase 9
+
+# (a) TinyLlama-1.1B at full width and depth, B=1 x 2048 (phase 8 (d)'s
+# shape): a warm-up step, TRAIN_STEPS timed steps, TRAIN_DET_STEPS more
+# under deterministic(), each set summed up by its median (the host
+# stalls now and then for a step); (b) microbatch 4 against 1 from one state at the
+# 2-layer cut, B=4 x 512, params within the reference's 3e-2
+# (tests/test_train_runtime.py:51-53); (c) the launcher (20 smoke steps)
+# and the example (EXAMPLE_STEPS steps, failures at a third and two thirds)
+TRAIN_STEPS, TRAIN_DET_STEPS = 3, 3
+MB_B, MB_S, MB_TOL = 4, 512, 3e-2
+# microbatch 4 against 1 beyond the reference's params check, which a
+# step-0 lr of 3e-6 cannot fail: gnorm (bfloat16 accumulation rounds each
+# entry by ~2^-9; a missing / microbatch gives 4x) and loss (the mean of
+# 4 slice means) relative, and the share of a leaf's step-1 directions
+# turned (bfloat16 activations turn ~1% between the two packages on one
+# batch, tests/test_torch_train_parity.py; a dropped slice, most)
+MB_GNORM_REL, MB_LOSS_REL, MB_DIR_OFF = 1e-2, 1e-3, 0.05
+LAUNCHER_STEPS, EXAMPLE_STEPS = 20, 40
+# elementwise float32 operations of one AdamW update per param, counted
+# from apply_adamw's arithmetic (scale, two moments, bias corrections,
+# sqrt, eps, division, decay, learning rate, subtraction)
+ADAMW_OPS_PER_PARAM = 17
+
+
+def adamw_bytes(state) -> int:
+    """Bytes apply_adamw must move: read each gradient (the param's dtype),
+    mu, nu and master once, write mu, nu, master and the params once."""
+    p = state_bytes(state["params"])
+    o = state["opt"]
+    return (2 * p + 2 * (state_bytes(o["mu"]) + state_bytes(o["nu"])
+                         + state_bytes(o["master"])))
+
+
+def train_full(dev, cfg, B: int = TRAIN_B, S: int = TRAIN_S) -> dict:
+    """(a) ``init_train_state`` on ``dev``, then make_train_step on
+    SyntheticLM.prefetch batches: a warm-up step, TRAIN_STEPS timed steps
+    (each ending in a synchronisation), TRAIN_DET_STEPS under the
+    controller's ``deterministic()`` (each set's median is its step
+    time); the gradient leaves that differ between two deterministic runs
+    on one batch (``grads_vary_det``, which must be empty); apply_adamw
+    alone on the last step's gradients; peak memory of the timed steps;
+    the busy share of one step under torch.profiler.  Checks the loss in
+    (0, 2 ln V), every param leaf moved over the timed steps, and params
+    == master cast to each param's dtype."""
+    from repro_torch.runtime import deterministic
+    from repro_torch.shardings import Sharding
+    from repro_torch.train import (AdamWConfig, SyntheticLM, apply_adamw,
+                                   init_train_state, make_train_step)
+    from repro_torch.train.step import value_and_grad
+
+    shd = Sharding(None, cfg)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=100)
+    step = make_train_step(cfg, shd, opt)
+    out = {"layers": cfg.n_layers, "batch": B, "seq": S,
+           "params": cfg.params_count()}
+    synchronize(dev)
+    t = time.perf_counter()
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(4),
+                             shards=4, device=dev)
+    synchronize(dev)
+    out["init_s"] = time.perf_counter() - t
+    out["state_bytes"] = state_bytes(state)
+    it = SyntheticLM(cfg.vocab, S, B, seed=5).prefetch(0)
+    try:
+        _, batch = next(it)
+        state, m = step(state, batch)                            # warm-up
+        before = {n: x.clone() for n, x in tree_leaves(state["params"])}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        times, losses = [], []
+        for _ in range(TRAIN_STEPS):
+            synchronize(dev)
+            t = time.perf_counter()
+            _, batch = next(it)
+            state, m = step(state, batch)
+            synchronize(dev)
+            times.append(time.perf_counter() - t)
+            losses.append(float(m["loss"]))
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                             if dev.type == "cuda" else None)
+        det = []
+        with deterministic():
+            for _ in range(TRAIN_DET_STEPS):
+                synchronize(dev)
+                t = time.perf_counter()
+                _, batch = next(it)
+                state, m = step(state, batch)
+                synchronize(dev)
+                det.append(time.perf_counter() - t)
+                losses.append(float(m["loss"]))
+    finally:
+        it.close()
+    out["step_s"] = float(np.median(times))
+    out["step_s_each"] = times
+    out["det_step_s"] = float(np.median(det)) if det else None
+    out["det_step_s_each"] = det
+    out["det_cost"] = (out["det_step_s"] / out["step_s"]) if det else None
+    out["tok_s"] = B * S / out["step_s"]
+    out["step_bound_s"] = 6 * cfg.params_count() * B * S \
+        / PEAK_BF16_FLOPS_PER_S
+    out["tok_s_bound"] = B * S / out["step_bound_s"]
+    out["losses"] = losses
+    out["gnorm"] = float(m["gnorm"])
+    out["lr"] = float(m["lr"])
+    check(all(0 < x < 2 * np.log(cfg.vocab) for x in losses),
+          f"training: a loss outside (0, 2 ln V): {losses}")
+    after = dict(tree_leaves(state["params"]))
+    still = [n for n, x in before.items() if torch.equal(x, after[n])]
+    check(not still, f"training: params unchanged over the steps: {still}")
+    master = dict(tree_leaves(state["opt"]["master"]))
+    off = [n for n, x in after.items()
+           if not torch.equal(x, master[n].to(x.dtype))]
+    check(not off, f"training: params differ from master cast: {off}")
+    del before, after, master
+
+    # the gradients of two deterministic runs on one batch
+    with deterministic():
+        g0 = value_and_grad(state["params"], batch, cfg, shd)[2]
+        g1 = dict(tree_leaves(value_and_grad(state["params"], batch, cfg,
+                                             shd)[2]))
+    out["grads_vary_det"] = [n for n, g in tree_leaves(g0)
+                             if not torch.equal(g, g1[n])]
+    del g0, g1
+    check(not out["grads_vary_det"], "training: gradients vary between two "
+          f"deterministic runs: {out['grads_vary_det']}")
+    _, _, grads = value_and_grad(state["params"], batch, cfg, shd)
+    nbytes = adamw_bytes(state)
+    nparams = sum(x.numel() for _, x in tree_leaves(state["params"]))
+    out["adamw_bytes"] = nbytes
+    out["adamw_bound_ms"], out["adamw_bound_by"] = bound_ms(
+        nbytes, ADAMW_OPS_PER_PARAM * nparams)
+    if dev.type == "cuda":
+        with torch.no_grad():
+            out["adamw_ms"] = cuda_ms(lambda: apply_adamw(
+                opt, state["params"], state["opt"], grads), 3)
+        del grads
+        torch.cuda.empty_cache()
+        it = SyntheticLM(cfg.vocab, S, B, seed=6).prefetch(0)
+        try:
+            _, batch = next(it)
+            out["profile"] = device_share(lambda: step(state, batch), 1)
+        finally:
+            it.close()
+    return out
+
+
+def microbatch_gap(init: dict, runs: dict) -> dict:
+    """How far microbatch 4's step lies from microbatch 1's, both from
+    state ``init``: the largest |param difference|, the relative gaps of
+    gnorm and loss, and (``dir_off``) the largest share, over the leaves,
+    of the entries whose step-1 direction (new master - old master) / lr
+    differs by more than 1 (a step-1 Adam update moves an entry by about
+    lr x sign(g), so a flipped gradient sign moves it by about 2)."""
+    (s1, m1), (s4, m4) = runs[1], runs[4]
+    lr = float(m1["lr"])
+    p4 = dict(tree_leaves(s4["params"]))
+    old = tree_leaves(init["opt"]["master"])
+    new1 = dict(tree_leaves(s1["opt"]["master"]))
+    new4 = dict(tree_leaves(s4["opt"]["master"]))
+    return {
+        "max_abs_diff": max(float((x.float() - p4[n].float()).abs().max())
+                            for n, x in tree_leaves(s1["params"])),
+        "gnorm_rel": abs(float(m4["gnorm"]) / float(m1["gnorm"]) - 1),
+        "loss_rel": abs(float(m4["loss"]) / float(m1["loss"]) - 1),
+        "dir_off": max(float(((new4[n] - new1[n]).abs() > lr)
+                             .float().mean()) for n, _ in old)}
+
+
+def check_microbatch(gap: dict) -> None:
+    check(gap["max_abs_diff"] <= MB_TOL,
+          f"microbatch 4 differs from 1 by {gap['max_abs_diff']}")
+    check(gap["gnorm_rel"] <= MB_GNORM_REL and gap["loss_rel"] <= MB_LOSS_REL,
+          f"microbatch 4's gnorm or loss differs from 1's: {gap}")
+    check(gap["dir_off"] <= MB_DIR_OFF,
+          f"microbatch 4 turns {gap['dir_off']} of a leaf's step-1 "
+          f"directions against 1's")
+
+
+def train_microbatch(dev, cfg, B: int = MB_B, S: int = MB_S) -> dict:
+    """(b) microbatch=4 against microbatch=1 from one state on one batch,
+    ``cfg`` cut to CTL_LAYERS: every param within MB_TOL, as the
+    reference's test_microbatch_equivalence holds them (its
+    AdamWConfig()), and ``microbatch_gap``'s gnorm, loss and direction
+    limits."""
+    from repro_torch.shardings import Sharding
+    from repro_torch.train import (AdamWConfig, SyntheticLM,
+                                   init_train_state, make_train_step,
+                                   shard_batch)
+
+    cfg = dataclasses.replace(cfg, n_layers=CTL_LAYERS)
+    shd = Sharding(None, cfg)
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(7),
+                             shards=4, device=dev)
+    batch = shard_batch(SyntheticLM(cfg.vocab, S, B, seed=8).batch_at(0))
+    out = {"layers": cfg.n_layers, "batch": B, "seq": S}
+    runs = {}
+    for mb in (1, 4):
+        step = make_train_step(cfg, shd, AdamWConfig(), microbatch=mb)
+        synchronize(dev)
+        t = time.perf_counter()
+        runs[mb] = step(state, batch)
+        synchronize(dev)
+        out[f"mb{mb}_s"] = time.perf_counter() - t
+        out[f"mb{mb}_loss"] = float(runs[mb][1]["loss"])
+    out.update(microbatch_gap(state, runs))
+    check_microbatch(out)
+    return out
+
+
+def train_entry_points(dev, launcher_steps: int = LAUNCHER_STEPS,
+                       example_steps: int = EXAMPLE_STEPS) -> dict:
+    """(c) launch/train.py's main and examples/torch/
+    train_with_forkbase_ckpt.py on ``dev`` (their output captured), the
+    launch counters zeroed before them and read after them
+    (``launches``): the loss falls (the mean of the last 5 steps under
+    the first 5's), the example restarts once per injected failure.
+    Then the last checkpoint of each run, restored, is held against the
+    plain versions (``saved_vs_plain``; sha256 cids, as they save)."""
+    import io
+    import runpy
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    out = {}
+    runs = {
+        "launcher": lambda: launch_train.main(
+            ["--smoke", "--steps", str(launcher_steps),
+             "--device", dev.type]),
+        "example": lambda: runpy.run_path(os.path.join(
+            ROOT, "examples", "torch", "train_with_forkbase_ckpt.py"),
+            run_name="example")["main"](
+            ["--steps", str(example_steps), "--device", dev.type])}
+    ctls = {}
+    ops.reset_launches()
+    for name, run in runs.items():
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            ctls[name] = ctl = run()
+        synchronize(dev)
+        losses = [loss for _, loss in ctl.metrics_log]
+        out[name] = {"s": time.perf_counter() - t, "steps": ctl.step,
+                     "restarts": ctl.restarts, "first_loss": losses[0],
+                     "last_loss": losses[-1],
+                     "last_line": buf.getvalue().splitlines()[-1]}
+        check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+              f"{name}: the loss did not fall: {losses}")
+    out["launches"] = ops.launches()
+    want = len({example_steps // 3, 2 * example_steps // 3})
+    check(out["launcher"]["restarts"] == 0
+          and out["example"]["restarts"] == want,
+          f"restarts {out['launcher']['restarts']} (launcher), "
+          f"{out['example']['restarts']} (example, {want} injected)")
+    for name, ctl in ctls.items():
+        out[name]["vs_plain"] = saved_vs_plain(
+            ctl.ckpt, ctl.branch, ctl.ckpt.restore(ctl.state, ctl.branch),
+            dev, fphash=False)
+    return out
+
+
+def training_path(dev, *, cfg=None, full=None, mb=None, entry=None) -> dict:
+    """Phase 9 on ``dev``: (a) ``train_full`` on ``cfg`` (default
+    TinyLlama-1.1B), (b) ``train_microbatch`` on its 2-layer cut, (c)
+    ``train_entry_points``, whose launches the counters (zeroed before
+    it) count.  The keyword arguments shrink the parts for a rehearsal on
+    the CPU."""
+    cfg = cfg or _tinyllama()
+    parts = {}
+    for part, fn in (
+            ("full", lambda: train_full(dev, cfg, **(full or {}))),
+            ("microbatch", lambda: train_microbatch(dev, cfg, **(mb or {}))),
+            ("entry_points", lambda: train_entry_points(dev, **(entry or {})))):
+        t = time.perf_counter()
+        parts[part] = fn()
+        synchronize(dev)
+        parts[part + "_s"] = time.perf_counter() - t
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    parts["train_launches"] = parts["entry_points"].pop("launches")
+    return parts
+
+
 # ------------------------------------------------------------ breakdown
 
 def profile_put(v1: bytes) -> dict:
@@ -2391,8 +2788,7 @@ def main() -> int:
         "disk_bytes_before": cp["disk_bytes_before"],
         "disk_bytes_after": cp["disk_bytes_after"],
         "disk_ratio": cp["disk_bytes_after"] / cp["disk_bytes_before"],
-        "controller_s": cp["controller_s"], "restarts": cp["restarts"],
-        "launches": cp["launches"],
+        "controller": cp["controller"], "launches": cp["launches"],
         "controller_launches": cp["controller_launches"],
         **{k: cp[k] for k in ("mark_s", "save_profile") if k in cp}}))
 
@@ -2466,6 +2862,19 @@ def main() -> int:
     m8 = model_path(dev)
     print(f"phase 8 (model path): {time.perf_counter() - t:.1f} s")
     print("model path: " + json.dumps(m8))
+
+    t = time.perf_counter()
+    m9 = training_path(dev)
+    print(f"phase 9 (training path): {time.perf_counter() - t:.1f} s")
+    train = m9["train_launches"]
+    check(train["boundary_bitmap"] > 0,
+          f"the bitmap never launched on the training path: {train}")
+    print("training path: " + json.dumps(m9))
+    # each kernel's largest |kernel - plain| over phase 2, the timed
+    # shapes, phase 7 and the saved train states of phases 5 and 9
+    saved = [cp["controller"]["vs_plain"]["max_abs_err"]] + [
+        m9["entry_points"][k]["vs_plain"]["max_abs_err"]
+        for k in ("launcher", "example")]
     kernels = []
     for row in timed:
         src, replaces = SOURCES[row["name"]]
@@ -2473,13 +2882,15 @@ def main() -> int:
             "name": row["name"], "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[row["name"]],
             "max_abs_err": max(err[row["name"]], row["max_abs_err"],
-                               cp7["max_abs_err"][row["name"]]),
+                               cp7["max_abs_err"][row["name"]],
+                               *(e.get(row["name"], 0) for e in saved)),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "shape": row["shape"],
             "ckpt_launches": both[row["name"]],
             "ledger_launches": ledger[row["name"]],
             "cluster_launches": cluster[row["name"]],
+            "train_launches": train[row["name"]],
             "kernel_ms": row["kernel_ms"],
             "registers": ptx[row["name"]]["registers"]})
     print(json.dumps({"kernels": kernels}))

@@ -24,8 +24,9 @@ either package restores in the other.
 
 Restore rebuilds tensors from the manifest and places each on its template
 leaf's device (or on ``mesh`` when that is a ``torch.device``): the
-checkpoint is placement-agnostic.  Sharded placement (``specs``) comes
-with the port's shardings and raises ``ConfigError`` until then.
+checkpoint is placement-agnostic.  On one device the only placement a
+sharding spec can ask for is a replicated one: specs that name a mesh axis
+raise ``ConfigError``.
 """
 from __future__ import annotations
 
@@ -120,6 +121,22 @@ def _leaf_record(leaf) -> tuple[bytes, str, list[int]]:
     # a 0-d tensor cannot be viewed as bytes: flatten it first
     raw = t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
     return raw, name, list(t.shape)
+
+
+def _named_axes(spec) -> list[str]:
+    """The mesh axis names anywhere in a tree of sharding specs (dicts,
+    lists and tuples; a spec's entry is None, an axis name or a tuple of
+    axis names)."""
+    if spec is None:
+        return []
+    if isinstance(spec, str):
+        return [spec]
+    if isinstance(spec, dict):
+        spec = list(spec.values())
+    if not isinstance(spec, (list, tuple)):
+        raise ConfigError(f"sharding spec entry {spec!r} is neither a mesh "
+                          f"axis name nor None")
+    return [a for v in spec for a in _named_axes(v)]
 
 
 def _tensor_of(data: bytes, meta: dict, device) -> torch.Tensor:
@@ -227,13 +244,19 @@ class CheckpointStore:
         dtypes and shapes come from the manifest).  Each tensor lands on
         its template leaf's device (the CPU for a leaf that is not a
         tensor), or on ``mesh`` when that is a ``torch.device`` — the
-        restart placement need not match the writer's."""
-        if specs is not None:
-            raise ConfigError("restore with sharding specs needs the "
-                              "port's shardings, which are not ported yet")
+        restart placement need not match the writer's.  As in the
+        reference, ``specs`` are ignored without a ``mesh``; with a device
+        they must replicate every leaf (no entry names a mesh axis), else
+        ConfigError: one device has no mesh to shard over."""
         if mesh is not None and not isinstance(mesh, torch.device):
             raise ConfigError(f"restore onto {type(mesh).__name__}: only a "
                               f"torch.device is supported")
+        if mesh is not None and specs is not None:
+            named = _named_axes(specs)
+            if named:
+                raise ConfigError(f"restore onto {mesh} with specs that "
+                                  f"shard over mesh axes {sorted(set(named))}"
+                                  f": one device has no mesh")
         handle = self.db.get(self.key, branch, uid=uid)
         if handle is None:
             raise CheckpointMissing(f"{self.key!r}@{branch or uid!r}")

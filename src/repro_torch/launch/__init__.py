@@ -1,2 +1,3 @@
 """Launchers: ``python -m repro_torch.launch.serve`` (prefill + greedy
-decode on the engine's device)."""
+decode on the engine's device) and ``python -m repro_torch.launch.train``
+(the training loop, checkpointed through ForkBase)."""

@@ -1,3 +1,5 @@
-from .controller import (SimulatedFailure, TrainController, run_resilient)
+from .controller import (SimulatedFailure, TrainController, deterministic,
+                         run_resilient)
 
-__all__ = ["TrainController", "SimulatedFailure", "run_resilient"]
+__all__ = ["TrainController", "SimulatedFailure", "deterministic",
+           "run_resilient"]

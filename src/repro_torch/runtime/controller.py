@@ -4,8 +4,8 @@
     checkpoint cost proportional to what actually changed);
   * failure injection + restart: on any step failure the controller
     restores the last committed version and replays — the data pipeline is
-    positioned from the checkpoint's step, so training is bit-deterministic
-    across restarts;
+    positioned from the checkpoint's step, and ``run`` steps under
+    ``deterministic()``, so training is bit-deterministic across restarts;
   * fork-on-conflict resolution: when several pod controllers race commits
     of the same run, the UB-table holds every head; the controller
     resolves by data progress and continues on the merged head;
@@ -17,6 +17,8 @@ unless the caller selected the CPU).
 """
 from __future__ import annotations
 
+import contextlib
+import os
 from dataclasses import dataclass, field
 
 import torch
@@ -28,6 +30,25 @@ from ..kernels import ops
 
 class SimulatedFailure(RuntimeError):
     pass
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` inside the block (the
+    previous setting restored after; the setting is process-wide).  On the
+    card it picks deterministic forms of the backward kernels that add
+    with atomics (scaled_dot_product_attention's dq varies between runs
+    without it).  Deterministic matrix products need
+    ``CUBLAS_WORKSPACE_CONFIG``, set here when the caller has not: torch
+    reads it at each product, cuBLAS's workspace is sized by its value at
+    the process's first product."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
 
 
 @dataclass
@@ -61,14 +82,17 @@ class TrainController:
 
     # ------------------------------------------------------------ loop
     def run(self, n_steps: int, max_restarts: int = 10):
-        while self.step < n_steps:
-            try:
-                self._run_segment(n_steps)
-            except SimulatedFailure:
-                self.restarts += 1
-                if self.restarts > max_restarts:
-                    raise
-                self._restore()
+        """Step to ``n_steps`` under ``deterministic()``, restoring the
+        branch head and replaying after each failure."""
+        with deterministic():
+            while self.step < n_steps:
+                try:
+                    self._run_segment(n_steps)
+                except SimulatedFailure:
+                    self.restarts += 1
+                    if self.restarts > max_restarts:
+                        raise
+                    self._restore()
         return self.state
 
     def _run_segment(self, n_steps: int):
@@ -90,8 +114,8 @@ class TrainController:
     # ------------------------------------------------ elastic / forking
     def remesh(self, mesh, specs):
         """Elastic restart: reload the current branch head onto a new
-        placement (``mesh`` a ``torch.device``; sharding ``specs`` raise
-        ``ConfigError`` until the port's shardings land)."""
+        placement (``mesh`` a ``torch.device``; ``specs`` that shard over
+        a mesh axis raise ``ConfigError``, see ``CheckpointStore.restore``)."""
         self.state = self.ckpt.restore(self.state, self.branch, mesh=mesh,
                                        specs=specs)
         return self.state

@@ -163,15 +163,22 @@ def test_foc_racing_pods(setup):
 
 def test_elastic_restore_roundtrip(setup):
     """The checkpoint is placement-agnostic: restore onto an explicit
-    device; sharding specs wait for the port's shardings."""
+    device.  Specs are ignored without a mesh, as in the reference; on a
+    device they may only replicate, and a spec naming a mesh axis raises
+    ConfigError."""
     state, _ = setup
     ck = CheckpointStore()
     ck.save(state, "run", step=0)
     assert_trees_equal(ck.restore(state, "run"), state)
     assert_trees_equal(
         ck.restore(state, "run", mesh=torch.device("cpu")), state)
+    assert_trees_equal(
+        ck.restore(state, "run", mesh=torch.device("cpu"), specs={}), state)
+    assert_trees_equal(
+        ck.restore(state, "run", specs={"params": ("data", "model")}), state)
     with pytest.raises(ConfigError):
-        ck.restore(state, "run", mesh=torch.device("cpu"), specs={})
+        ck.restore(state, "run", mesh=torch.device("cpu"),
+                   specs={"params": (None, "model")})
 
 
 # ------------------------------------------------------ controller verbs
@@ -183,8 +190,10 @@ def test_remesh_and_fork_experiment(setup):
     ctl.run(4)
     before = ctl.state
     assert_trees_equal(ctl.remesh(torch.device("cpu"), None), before)
+    assert_trees_equal(ctl.remesh(torch.device("cpu"), {"params": None}),
+                       before)
     with pytest.raises(ConfigError):
-        ctl.remesh(torch.device("cpu"), {"params": None})
+        ctl.remesh(torch.device("cpu"), {"params": ("data",)})
     ctl.fork_experiment("from2", from_step=2)
     assert ck.step_of(ck.db.get("ckpt", "from2").uid) == 2
     ctl.fork_experiment("head")

@@ -53,6 +53,7 @@ from repro_torch.core import ForkBase, hashing
 from repro_torch.gc import GCPhase
 from repro_torch.kernels import ops
 from repro_torch.storage import MemoryBackend
+from torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")

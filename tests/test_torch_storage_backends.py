@@ -25,6 +25,7 @@ from repro_torch.storage import (ChunkMissing, LRUCacheBackend,
                                  SegmentBackend, ShardedBackend,
                                  StorageBackend, TamperedChunk,
                                  TieredBackend, WriteBuffer, make_backend)
+from torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 BACKENDS = ["memory", "log", "lru", "replicated", "sharded", "routing",
             "segment", "tiered"]

@@ -9,6 +9,7 @@ from repro_torch.core import (ChunkParams, ChunkStore, Cluster, FBlob,
                               ReplicatedStore)
 from repro_torch.core.chunk import cid_of, encode_chunk
 from repro_torch.kernels import ops
+from torch_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

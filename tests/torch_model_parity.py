@@ -19,7 +19,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import ARCHS, smoke
@@ -28,24 +27,9 @@ from repro.shardings import Sharding
 from repro_torch.configs import ARCHS as T_ARCHS, smoke as t_smoke
 from repro_torch.models import model as TM
 from repro_torch.shardings import Sharding as TSharding
+from torch_threads import torch_one_thread  # noqa: F401 (re-exported)
 
 B, S, DECODES = 2, 32, 3
-
-
-@pytest.fixture(autouse=True)
-def torch_one_thread():
-    """One intra-op thread for torch while a test runs (restored after).
-    With several pytest-xdist workers and torch's default of a thread per
-    core, each worker's small ops contend with every other worker's: under
-    6 workers on 8 cores the model, serve and example test files took
-    135.8 s with the default and 63.6 s with this fixture.  Import it into
-    a test module to apply it there."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(prev)
 LOGIT_TOL = 1e-3
 LOSS_TOL = 2e-3
 
