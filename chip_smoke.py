@@ -149,6 +149,31 @@ Phases, in order; any failed check exits non-zero:
    its plain version on every leaf).  The line "training path: {...}"
    gives each part and (c)'s launches (the bitmap, through the
    checkpoints).
+10. The mesh and cost tooling (src/repro_torch/{launch/mesh,launch/dryrun,
+   roofline,shardings}.py): (b) first, alone, since it times calls:
+   TinyLlama-1.1B at full width and depth, its train step at 1 x 2048,
+   prefill 4 x 512 and one decode step against a 576-row cache, each
+   counted on meta by roofline.OpCost and profiled on the card
+   (torch.profiler with_flops): the census's matrix-product FLOPs must
+   equal the profiler's within CENSUS_TOL, and each call's median time
+   stands beside the roofline of its census; then (a) every arch x shape
+   cell of the dry run at full width and depth on meta, both production
+   meshes (16x16, 2x16x16) from one census a cell, in DRYRUN_WORKERS
+   spawned processes: every cell completes, model FLOPs 6 N D (train) or
+   2 N D, at most 80 GB of arguments a device on 16x16, a condensed table;
+   while it runs, (c) olmoe-1b-7b at full width cut to two layers on
+   Sharding(make_mesh_for(1), cfg): prefill through moe_shard_map equal
+   bit for bit to the mesh-less gather path (deterministic algorithms),
+   shard_batch onto the mesh, the params saved and restored onto the mesh
+   with their specs and the smoke config's train state restored and
+   remeshed with its state specs, bit for bit on the card, and the 16x16
+   mesh's specs raising ConfigError in restore, moe_shard_map and
+   shard_batch.  No kernel of csrc runs in (a) or (b); (c)'s saves (the
+   params and the controller's checkpoints) launch the bitmap, counted
+   from 0 just before them and read just after, and both saved heads
+   have the plain versions' root cids (the bitmap held against its plain
+   version on every leaf).  The line "mesh and cost path: {...}" gives
+   each part and (c)'s launches.
 
 The line before the last is one JSON object with each kernel's launches on
 the main path (and on phases 5, 6, 7 and 9), its largest |kernel - plain|
@@ -2498,6 +2523,348 @@ def training_path(dev, *, cfg=None, full=None, mb=None, entry=None) -> dict:
     return parts
 
 
+# ------------------------------------------------------------ phase 10
+
+# (a) every arch x shape cell of the dry run (launch/dryrun.py) at full
+# width and depth on meta, both production meshes from one census a cell,
+# DRYRUN_WORKERS processes at once; argument bytes a device on 16x16 at
+# most one H100's 80 GB
+DRYRUN_WORKERS = 6
+DRYRUN_ARG_LIMIT = 80e9
+# (b) TinyLlama-1.1B: the census's matrix-product FLOPs (mm, bmm, addmm,
+# baddbmm) against torch.profiler's with_flops for the same call on the
+# card.  Both count 2 x M x N x K a product from the same shapes, so they
+# should agree exactly; the tolerance leaves room for a product that one
+# side reaches through another aten op
+CENSUS_TOL = 1e-3
+PRODUCT_OPS = ("mm", "bmm", "addmm", "baddbmm")
+CENSUS_CALLS = {"train": (1, 2048), "prefill": (SERVE_B, SERVE_S),
+                "decode": (SERVE_B, SERVE_S + SERVE_GEN)}
+# (c) olmoe-1b-7b at full width, two layers (phase 8 (b)'s cut), prefill
+# B x S through the one-card mesh's moe_shard_map against the mesh-less
+# gather path, both under deterministic algorithms (the combine's
+# index_add adds with atomics otherwise): equal bit for bit
+MESH_ARCH, MESH_B, MESH_S = "olmoe-1b-7b", WIDE_B, WIDE_S
+
+
+def _dryrun_cell(job: tuple) -> tuple:
+    """One catalogue cell in a worker process: its records on both
+    production meshes and the seconds it took."""
+    from repro_torch.launch import dryrun
+    torch.set_num_threads(1)
+    t = time.perf_counter()
+    recs = dryrun.lower_both(*job)
+    return job, recs, time.perf_counter() - t
+
+
+def start_catalogue():
+    """(a) Start the whole catalogue: each cell's census in one of
+    DRYRUN_WORKERS spawned processes, the slowest (the xLSTM's per-step
+    sLSTM loop, the 110B train step) first.  Returns what
+    ``finish_catalogue`` takes."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    from repro_torch.configs import ARCHS, shapes_for
+
+    cells = [(a, s) for a in ARCHS for s in shapes_for(ARCHS[a])]
+    slow = {("xlstm-125m", "prefill_32k"), ("xlstm-125m", "train_4k"),
+            ("qwen1.5-110b", "train_4k")}
+    cells = sorted(cells, key=lambda c: c not in slow)
+    ex = cf.ProcessPoolExecutor(DRYRUN_WORKERS,
+                                mp_context=mp.get_context("spawn"))
+    return ex, [ex.submit(_dryrun_cell, c) for c in cells], \
+        time.perf_counter()
+
+
+def finish_catalogue(started) -> dict:
+    """(a) Wait for every cell (the pool's processes end with it), then
+    check that each completed, that each record's model FLOPs are 6 N D
+    (train) or 2 N D, and the argument bytes a device on 16x16; print the
+    seconds and a condensed table."""
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.roofline import roofline_terms
+
+    ex, futures, t = started
+    with ex:
+        done = [f.result() for f in futures]
+    wall = time.perf_counter() - t
+    rows = {}
+    for (arch, shape), recs, secs in done:
+        cfg, sh = ARCHS[arch], SHAPES[shape]
+        n = cfg.active_params_count() or cfg.params_count()
+        tokens = sh.global_batch * (sh.seq_len if sh.kind != "decode" else 1)
+        want = (6 if sh.kind == "train" else 2) * n * tokens
+        for rec in recs.values():
+            terms = roofline_terms(rec)
+            got = terms["model_flops_per_device"] * rec["n_chips"]
+            check(abs(got - want) <= 1e-9 * want,
+                  f"{arch} {shape} {rec['mesh']}: model FLOPs {got} != {want}")
+            row = rows.setdefault(f"{arch} {shape}", {"s": secs})
+            row[rec["mesh"]] = {
+                "arg_GB": rec["memory"]["argument_bytes"] / 1e9,
+                "peak_GB": rec["memory"]["peak_per_device_gb"],
+                "flops_dev": rec["cost"]["flops_per_device"],
+                "dominant": terms["dominant"],
+                "roofline_fraction": terms["roofline_fraction"]}
+        arg = recs[False]["memory"]["argument_bytes"]
+        check(arg <= DRYRUN_ARG_LIMIT,
+              f"{arch} {shape}: {arg / 1e9:.1f} GB of arguments a device on "
+              f"16x16")
+    print(f"  dry run: {len(rows)} cells x 2 meshes in {wall:.1f} s "
+          f"({DRYRUN_WORKERS} processes)")
+    print(f"  {'cell':34s} {'s':>6s} {'argGB':>6s} {'peakGB':>7s} "
+          f"{'flops/dev':>10s} {'dom':>7s} {'roof':>6s} | 2x16x16 peakGB")
+    for cell, row in rows.items():
+        a, b = row["16x16"], row["2x16x16"]
+        print(f"  {cell:34s} {row['s']:6.1f} {a['arg_GB']:6.2f} "
+              f"{a['peak_GB']:7.2f} {a['flops_dev']:10.3g} "
+              f"{a['dominant']:>7s} {a['roofline_fraction']:6.3f} | "
+              f"{b['peak_GB']:7.2f}")
+    return {"cells": len(rows), "wall_s": wall, "workers": DRYRUN_WORKERS,
+            "slowest": max((r["s"], c) for c, r in rows.items()),
+            "max_arg_GB_16x16": max(r["16x16"]["arg_GB"]
+                                    for r in rows.values()),
+            "max_peak_GB_16x16": max(r["16x16"]["peak_GB"]
+                                     for r in rows.values())}
+
+
+def _product_flops(by_op: dict) -> int:
+    return sum(v for k, v in by_op.items() if k in PRODUCT_OPS)
+
+
+def _census_and_call(dev, cfg, kind: str, B: int, S: int):
+    """The census on meta of one ``kind`` call of ``cfg`` at B x S (a
+    train step at microbatch 1, a prefill, or one decode step against an
+    S-row cache), and the same call on ``dev`` as a function of no
+    arguments with its inputs built (seeded)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    from repro_torch.shardings import Sharding
+    from repro_torch.train import AdamWConfig, init_train_state, \
+        make_train_step
+
+    census = dryrun.census_cell(cfg, ShapeConfig(kind, S, B, kind), 1, 1,
+                                device="meta")
+    shd = Sharding(None, cfg)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    toks = _tokens(cfg.vocab, (B, S if kind != "decode" else 1), 6, dev)
+    if kind == "train":
+        state = init_train_state(cfg, gen, shards=1, device=dev)
+        step = make_train_step(cfg, shd, AdamWConfig(), microbatch=1)
+        batch = {"tokens": toks, "labels": toks}
+        return census, lambda: step(state, batch)
+    params = M.init_params(cfg, gen, shards=1, device=dev)
+    if kind == "prefill":
+        def call():
+            with torch.no_grad():
+                return M.prefill(params, {"tokens": toks}, cfg, shd)
+        return census, call
+    cache = M.init_cache(cfg, B, S, device=dev)
+    pos = torch.full((B,), S // 2, dtype=torch.int32, device=dev)
+
+    def call():
+        with torch.no_grad():
+            return M.decode_step(params, cache, {"tokens": toks, "pos": pos},
+                                 cfg, shd)
+    return census, call
+
+
+def census_vs_profiler(dev) -> dict:
+    """(b) For each call of CENSUS_CALLS (kind -> (B, S)) on TinyLlama-1.1B
+    at full width and depth: the census's product FLOPs against torch.profiler's for one
+    call on the card (a warm-up call first), the census's other totals,
+    the call's median time over 3, and the roofline of the census's record
+    on the one-card mesh beside that time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.roofline import PEAK_FLOPS, roofline_terms
+
+    cfg = _tinyllama()
+    mesh = make_mesh_for(1, device=dev)
+    out = {}
+    for kind, (B, S) in CENSUS_CALLS.items():
+        census, call = _census_and_call(dev, cfg, kind, B, S)
+        call()
+        synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     with_flops=True) as prof:
+            call()
+            synchronize(dev)
+        prof_flops = sum(e.flops for e in prof.key_averages()
+                         if e.key.removeprefix("aten::") in PRODUCT_OPS)
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            call()
+            synchronize(dev)
+            times.append(time.perf_counter() - t)
+        measured = float(np.median(times))
+        rec = dryrun.cell_record(census, mesh, cfg.name, kind)
+        terms = roofline_terms(rec)
+        got = _product_flops(census.totals["flops_by_op"])
+        rel = abs(got - prof_flops) / max(prof_flops, 1)
+        check(rel <= CENSUS_TOL,
+              f"{kind}: census product FLOPs {got} against the profiler's "
+              f"{prof_flops} ({rel:.2e} relative)")
+        bound = max(terms["compute_s"], terms["memory_s"],
+                    terms["collective_s"])
+        out[kind] = {
+            "batch": B, "seq": S, "census_product_flops": got,
+            "profiler_product_flops": prof_flops, "rel_err": rel,
+            "census_flops": census.totals["flops_per_device"],
+            "flops_by_op": census.totals["flops_by_op"],
+            "census_bytes": census.totals["hbm_bytes_per_device"],
+            "census_ops": census.totals["ops"],
+            "census_s": census.census_s,
+            "measured_s": measured, "compute_s": terms["compute_s"],
+            "memory_s": terms["memory_s"], "dominant": terms["dominant"],
+            "roofline_fraction": terms["roofline_fraction"],
+            "measured_fraction": terms["model_flops_per_device"]
+            / PEAK_FLOPS / measured,
+            "bound_over_measured": bound / measured}
+        del call
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_path(dev) -> dict:
+    """(c) olmoe-1b-7b at full width, phase 8 (b)'s two-layer cut, on
+    ``Sharding(make_mesh_for(1), cfg)``: prefill through ``moe_shard_map``
+    against the mesh-less gather path (bit for bit, under deterministic
+    algorithms); ``shard_batch`` onto the mesh; the params saved and the
+    smoke config's train state trained 2 steps by a ``TrainController``
+    that checkpoints each, the launch counters zeroed before those saves
+    and read after them (``launches``);
+    ``CheckpointStore.restore(mesh=..., specs=...)`` of the params (param
+    specs) and of the train state (state specs), and
+    ``TrainController.remesh`` onto the mesh, every leaf bit for bit on
+    the card; both saved heads against the plain versions
+    (``saved_vs_plain``); specs and the expert-parallel MoE over an axis
+    of size > 1 (the 16x16 mesh) raise ConfigError."""
+    from repro_torch.ckpt import CheckpointStore
+    from repro_torch.configs import ARCHS, smoke
+    from repro_torch.errors import ConfigError
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh_for, make_production_mesh
+    from repro_torch.models import model as M
+    from repro_torch.runtime import TrainController, deterministic
+    from repro_torch.shardings import Sharding
+    from repro_torch.train import (AdamWConfig, SyntheticLM,
+                                   init_train_state, make_train_step,
+                                   shard_batch)
+
+    cfg = depth_cut(ARCHS[MESH_ARCH])
+    mesh = make_mesh_for(1, device=dev)
+    shd = Sharding(mesh, cfg, MESH_B)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(8),
+                           shards=shd.tp, device=dev)
+    toks = _tokens(cfg.vocab, (MESH_B, MESH_S), 9, dev)
+    out = {"mesh": repr(mesh), "tp": shd.tp, "dp_size": shd.dp_size}
+    with torch.no_grad(), deterministic():
+        t = time.perf_counter()
+        c_mesh, l_mesh = M.prefill(params, {"tokens": toks}, cfg, shd)
+        synchronize(dev)
+        out["prefill_mesh_s"] = time.perf_counter() - t
+        c_flat, l_flat = M.prefill(params, {"tokens": toks}, cfg,
+                                   Sharding(None, cfg))
+    out["max_abs_err"] = max(
+        float((a.float() - b.float()).abs().max()) for a, b in
+        zip([l_mesh, *_leaves(c_mesh)], [l_flat, *_leaves(c_flat)]))
+    check(out["max_abs_err"] == 0,
+          f"{cfg.name}: prefill through moe_shard_map differs from the "
+          f"gather path by {out['max_abs_err']}")
+    batch = shard_batch(SyntheticLM(cfg.vocab, MESH_S, MESH_B).batch_at(0),
+                        mesh, shd)
+    check(all(v.device.type == dev.type for v in batch.values()),
+          "shard_batch did not place the batch on the mesh's card")
+
+    scfg = smoke(ARCHS[MESH_ARCH])
+    sshd = Sharding(mesh, scfg, 4)
+    state = init_train_state(scfg, torch.Generator(device=dev).manual_seed(
+        10), shards=sshd.tp, device=dev)
+    step = make_train_step(scfg, sshd, AdamWConfig(), microbatch=1)
+    ck = CheckpointStore()
+    ops.reset_launches()
+    t = time.perf_counter()
+    ck.save(params, "params", step=0)
+    out["save_s"] = time.perf_counter() - t
+    ctl = TrainController(step, state, SyntheticLM(scfg.vocab, 32, 4),
+                          CheckpointStore(), ckpt_every=1)
+    ctl.run(2)
+    out["launches"] = ops.launches()
+
+    t = time.perf_counter()
+    back = ck.restore(params, "params", mesh=mesh,
+                      specs=shd.param_specs(params))
+    synchronize(dev)
+    out["restore_s"] = time.perf_counter() - t
+    out["param_bytes"] = state_bytes(params)
+    check(trees_equal(back, params),
+          "restore onto the one-card mesh is not the saved params")
+    specs = sshd.state_specs(ctl.state)
+    got = ctl.ckpt.restore(ctl.state, ctl.branch, mesh=mesh, specs=specs)
+    before = ctl.state
+    moved = ctl.remesh(mesh, specs)
+    check(trees_equal(got, before) and trees_equal(moved, before),
+          "restore / remesh of the train state onto the mesh differ")
+    out["state_leaves"] = len(_leaves(moved))
+    t = time.perf_counter()
+    out["params_vs_plain"] = saved_vs_plain(ck, "params", params, dev,
+                                            fphash=False)
+    out["state_vs_plain"] = saved_vs_plain(ctl.ckpt, ctl.branch, got, dev,
+                                           fphash=False)
+    out["vs_plain_s"] = time.perf_counter() - t
+
+    wide = Sharding(make_production_mesh(), cfg, 256)
+    raised = []
+    for what, fn in (
+            ("restore", lambda: ck.restore(
+                params, "params", mesh=make_production_mesh(),
+                specs=wide.param_specs(params))),
+            ("moe_shard_map", lambda: wide.moe_shard_map(
+                None, toks, params["layers"]["moe"])),
+            ("shard_batch", lambda: shard_batch(
+                {"tokens": np.zeros((256, 8), np.int32)},
+                make_production_mesh(), wide))):
+        try:
+            fn()
+        except ConfigError:
+            raised.append(what)
+    check(len(raised) == 3, f"only {raised} raised ConfigError for an axis "
+                            f"of size > 1")
+    out["raised"] = raised
+    del params, back, c_mesh, c_flat
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_cost_path(dev) -> dict:
+    """Phase 10: (b) the census against the profiler on TinyLlama-1.1B
+    first, alone, since it times calls; then (a) the dry-run catalogue in
+    worker processes while (c), the mesh path of olmoe-1b-7b, runs here."""
+    parts = {}
+    t = time.perf_counter()
+    parts["census"] = census_vs_profiler(dev)
+    parts["census_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    started = start_catalogue()
+    try:
+        parts["mesh"] = mesh_path(dev)
+    except BaseException:
+        started[0].shutdown(wait=True, cancel_futures=True)
+        raise
+    parts["mesh_s"] = time.perf_counter() - t
+    parts["dryrun"] = finish_catalogue(started)
+    parts["dryrun_s"] = time.perf_counter() - t
+    parts["mesh_launches"] = parts["mesh"].pop("launches")
+    return parts
+
+
 # ------------------------------------------------------------ breakdown
 
 def profile_put(v1: bytes) -> dict:
@@ -2870,11 +3237,21 @@ def main() -> int:
     check(train["boundary_bitmap"] > 0,
           f"the bitmap never launched on the training path: {train}")
     print("training path: " + json.dumps(m9))
+
+    t = time.perf_counter()
+    m10 = mesh_cost_path(dev)
+    print(f"phase 10 (mesh and cost tooling): {time.perf_counter() - t:.1f} s")
+    mesh = m10["mesh_launches"]
+    check(mesh["boundary_bitmap"] > 0,
+          f"the bitmap never launched on the mesh path: {mesh}")
+    print("mesh and cost path: " + json.dumps(m10))
     # each kernel's largest |kernel - plain| over phase 2, the timed
-    # shapes, phase 7 and the saved train states of phases 5 and 9
+    # shapes, phase 7 and the saved states of phases 5, 9 and 10
     saved = [cp["controller"]["vs_plain"]["max_abs_err"]] + [
         m9["entry_points"][k]["vs_plain"]["max_abs_err"]
-        for k in ("launcher", "example")]
+        for k in ("launcher", "example")] + [
+        m10["mesh"][k]["max_abs_err"]
+        for k in ("params_vs_plain", "state_vs_plain")]
     kernels = []
     for row in timed:
         src, replaces = SOURCES[row["name"]]
@@ -2891,6 +3268,7 @@ def main() -> int:
             "ledger_launches": ledger[row["name"]],
             "cluster_launches": cluster[row["name"]],
             "train_launches": train[row["name"]],
+            "mesh_launches": mesh[row["name"]],
             "kernel_ms": row["kernel_ms"],
             "registers": ptx[row["name"]]["registers"]})
     print(json.dumps({"kernels": kernels}))

@@ -23,10 +23,12 @@ and context JSON are the same strings — so a checkpoint written by
 either package restores in the other.
 
 Restore rebuilds tensors from the manifest and places each on its template
-leaf's device (or on ``mesh`` when that is a ``torch.device``): the
-checkpoint is placement-agnostic.  On one device the only placement a
-sharding spec can ask for is a replicated one: specs that name a mesh axis
-raise ``ConfigError``.
+leaf's device, on ``mesh`` when that is a ``torch.device``, or on the one
+card of a ``repro_torch.mesh.Mesh``: the checkpoint is
+placement-agnostic.  On one card the only placement a sharding spec can
+ask for is a whole tensor:
+specs that name an axis of size > 1 (any axis, for a plain device) raise
+``ConfigError``.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import torch
 from ..core import ForkBase, FBlob, FMap, NoSuchRef, POSTree, load_fobject
 from ..core import chunk as ck
 from ..errors import CheckpointMissing, ConfigError, TensorMissing
+from ..mesh import Mesh, spec_axes
 from ..storage import WriteBuffer
 
 # numpy's dtype names (what the manifest stores) <-> torch dtypes; the
@@ -121,22 +124,6 @@ def _leaf_record(leaf) -> tuple[bytes, str, list[int]]:
     # a 0-d tensor cannot be viewed as bytes: flatten it first
     raw = t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
     return raw, name, list(t.shape)
-
-
-def _named_axes(spec) -> list[str]:
-    """The mesh axis names anywhere in a tree of sharding specs (dicts,
-    lists and tuples; a spec's entry is None, an axis name or a tuple of
-    axis names)."""
-    if spec is None:
-        return []
-    if isinstance(spec, str):
-        return [spec]
-    if isinstance(spec, dict):
-        spec = list(spec.values())
-    if not isinstance(spec, (list, tuple)):
-        raise ConfigError(f"sharding spec entry {spec!r} is neither a mesh "
-                          f"axis name nor None")
-    return [a for v in spec for a in _named_axes(v)]
 
 
 def _tensor_of(data: bytes, meta: dict, device) -> torch.Tensor:
@@ -243,16 +230,20 @@ class CheckpointStore:
         """Rebuild the pytree of ``like`` (its structure names the leaves;
         dtypes and shapes come from the manifest).  Each tensor lands on
         its template leaf's device (the CPU for a leaf that is not a
-        tensor), or on ``mesh`` when that is a ``torch.device`` — the
+        tensor), on ``mesh`` when that is a ``torch.device``, or on the
+        one card of ``mesh`` when that is a ``repro_torch.mesh.Mesh`` — the
         restart placement need not match the writer's.  As in the
-        reference, ``specs`` are ignored without a ``mesh``; with a device
-        they must replicate every leaf (no entry names a mesh axis), else
-        ConfigError: one device has no mesh to shard over."""
-        if mesh is not None and not isinstance(mesh, torch.device):
+        reference, ``specs`` are ignored without a ``mesh``.  With a
+        device they must replicate every leaf (no entry names a mesh
+        axis); with a Mesh every axis they name must have size 1; else
+        ConfigError: sharding across cards is the multi-card port."""
+        if isinstance(mesh, Mesh):
+            mesh = mesh.device_for(specs)
+        elif mesh is not None and not isinstance(mesh, torch.device):
             raise ConfigError(f"restore onto {type(mesh).__name__}: only a "
-                              f"torch.device is supported")
-        if mesh is not None and specs is not None:
-            named = _named_axes(specs)
+                              f"torch.device or a Mesh is supported")
+        elif mesh is not None and specs is not None:
+            named = spec_axes(specs)
             if named:
                 raise ConfigError(f"restore onto {mesh} with specs that "
                                   f"shard over mesh axes {sorted(set(named))}"

@@ -135,10 +135,16 @@ def blocked_attention(q, k, v, *, causal: bool = True, q_block: int = 512,
 def sdpa_attention(q, k, v, *, softmax_scale: float | None = None):
     """Causal attention by ``scaled_dot_product_attention`` on (B, S, H, dh)
     tensors: the function of ``blocked_attention(causal=True)`` without
-    decay."""
-    o = F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, scale=softmax_scale)
+    decay.  On meta tensors (a dry run) it is the fused flash-attention op
+    that the card runs: meta would decompose scaled_dot_product_attention
+    into its math form, whose S x S scores the card never materialises."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if q.is_meta:
+        o = torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, True, False, scale=softmax_scale)[0]
+    else:
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           scale=softmax_scale)
     return o.transpose(1, 2).to(q.dtype)
 
 
@@ -148,8 +154,9 @@ def flash_attention(q, k, v, *, causal: bool = True, q_block: int = 512,
                     mlstm_norm: bool = False):
     """Attention of (B, S, H, dh) tensors (KV pre-repeated): the blocked
     online softmax of ``blocked_attention``, or on CUDA, for the plain
-    causal case, ``sdpa_attention`` (same function, fused)."""
-    if (q.is_cuda and causal and decay is None and not mlstm_norm
+    causal case, ``sdpa_attention`` (same function, fused).  Meta tensors
+    stand for the card in a dry run and take the card's route."""
+    if ((q.is_cuda or q.is_meta) and causal and decay is None and not mlstm_norm
             and q.shape[1] == k.shape[1]):
         return sdpa_attention(q, k, v, softmax_scale=softmax_scale)
     return blocked_attention(q, k, v, causal=causal, q_block=q_block,
@@ -189,7 +196,10 @@ def _write_rows(cache, rows, pos):
 
 def check_positions(pos, T: int) -> None:
     """Decode positions must lie in [0, T): a row outside the cache is a
-    caller's error, never a clamped write."""
+    caller's error, never a clamped write.  Meta tensors (a dry run) hold
+    no positions to check."""
+    if pos.is_meta:
+        return
     lo, hi = torch.stack([pos.min(), pos.max()]).tolist()
     if lo < 0 or hi >= T:
         raise ConfigError(f"decode position {hi if hi >= T else lo} outside "
@@ -291,11 +301,18 @@ def mlp_block(p, x, cfg, shd):
 
 # ------------------------------------------------------------------- init
 
+class MetaDraws:
+    """Takes a generator's place when parameters are built on the meta
+    device (a dry run): every draw is a meta tensor, so nothing is drawn
+    and nothing is allocated."""
+    device = torch.device("meta")
+
+
 def normal(gen, shape, std, dtype=torch.bfloat16):
     """N(0, std^2) of ``shape`` drawn in float32 by ``gen`` on its device,
     then cast (as the reference draws in float32 and casts)."""
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
+    x = torch.randn(shape, generator=None if isinstance(gen, MetaDraws)
+                    else gen, device=gen.device, dtype=torch.float32)
     return (x * std).to(dtype)
 
 

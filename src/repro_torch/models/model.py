@@ -35,8 +35,8 @@ from ..kernels import ops
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
-from .layers import (attention_block, check_positions, init_attention,
-                     init_mlp, mlp_block, normal, rms_norm)
+from .layers import (MetaDraws, attention_block, check_positions,
+                     init_attention, init_mlp, mlp_block, normal, rms_norm)
 
 _TX = ("dense", "moe", "audio", "vlm")
 
@@ -115,8 +115,12 @@ def _init_tx_layer(gen, cfg, shards):
 def init_params(cfg, gen: torch.Generator, shards: int = 16, device=None):
     """Random params of ``cfg`` with the reference's tree, shapes and
     dtypes, drawn by ``gen`` on its device and placed on ``device``
-    (default: the engine's device, ``kernels.ops.device()``)."""
+    (default: the engine's device, ``kernels.ops.device()``).  On the meta
+    device (a dry run, the counterpart of ``jax.eval_shape``) nothing is
+    drawn or allocated."""
     device = ops.ready_device() if device is None else torch.device(device)
+    if device.type == "meta":
+        gen = MetaDraws()
     V = padded_vocab(cfg, shards)
     d = cfg.d_model
     dev = gen.device

@@ -5,10 +5,12 @@ Two dispatch implementations (cfg.moe_impl):
 
   * 'gather' (default) — a sort + gather into per-expert capacity buffers
     (zero dispatch-matmul FLOPs), expert GEMMs over the buffers, and a
-    scatter-add combine.  On one device every expert is local
-    (``e_start=0``, ``e_local=n_experts``, no combine across devices); the
-    expert-parallel form over a mesh waits for the mesh port
-    (``shardings.Sharding.moe_shard_map``).
+    scatter-add combine.  Without a mesh every expert is local
+    (``e_start=0``, ``e_local=n_experts``, no combine across devices); with
+    a mesh the body runs through ``shardings.Sharding.moe_shard_map``, on
+    one card only while the axes it shards over have size 1.  Shapes stay
+    static (no data-dependent sizes), so the body also runs on the meta
+    device in a dry run.
 
   * 'onehot' — classic capacity one-hot einsum dispatch (Mesh-TF/GShard
     style), kept as the reference/baseline; its dispatch einsums burn
@@ -21,10 +23,11 @@ the lower expert index.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
-from ..errors import ConfigError
 from .layers import normal
 
 
@@ -67,14 +70,13 @@ def _expert_ffn(h_in, w_in, w_gate, w_out, act: str):
 def moe_gather_local(x, p, cfg, *, e_start, e_local, capacity, axis_name):
     """Local body: x (T, d) are the tokens; this call computes experts
     e_start .. e_start + e_local - 1.  ``axis_name`` names the mesh axis
-    whose shards sum the combine; on one device it is None.
+    whose shards sum the combine (None without a mesh).  The port runs the
+    body only where that axis has size 1 (``Sharding.moe_shard_map``
+    checks), so the sum over it is the identity.
 
     For each local expert slot (e, c) it computes which *sorted routed
     token* fills it (slot-inverse indexing) and gathers exactly
     e_local * C rows."""
-    if axis_name is not None:
-        raise ConfigError("moe_gather_local over a mesh axis is not ported "
-                          "yet")
     T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = capacity
@@ -88,7 +90,8 @@ def moe_gather_local(x, p, cfg, *, e_start, e_local, capacity, axis_name):
     se = flat_e[order]
     st = order // k                              # token of sorted slot
     sp = top_p.reshape(-1)[order]
-    counts = torch.bincount(se, minlength=E)
+    counts = torch.zeros((E,), dtype=se.dtype, device=dev).index_add(
+        0, se, torch.ones_like(se))                       # per expert
     starts = torch.cumsum(counts, 0) - counts             # exclusive prefix
     eids = e_start + torch.arange(e_local, device=dev)
     ar = torch.arange(C, device=dev)
@@ -142,7 +145,11 @@ def moe_block(p, x, cfg, shd):
     cap = max(cap, cfg.top_k)
     xt = x.reshape(T, d)
 
-    if cfg.moe_impl == "gather":
+    if cfg.moe_impl == "gather" and shd.mesh is not None:
+        out2, lb, z = shd.moe_shard_map(
+            functools.partial(moe_gather_local, cfg=cfg, capacity=cap),
+            xt, p)
+    elif cfg.moe_impl == "gather":
         out2, lb, z = moe_gather_local(
             xt, p, cfg, e_start=0, e_local=cfg.n_experts, capacity=cap,
             axis_name=None)

@@ -118,22 +118,40 @@ def init_mlstm_state(cfg, B, device=None):
 
 # ------------------------------------------------------------------ sLSTM
 
-def _slstm_cell(p, x_t, state, cfg):
-    """One step.  x_t (B, d); state tuple (c, n, h, m) each (B, d)."""
+_GATES = "zifo"
+
+
+def _slstm_weights(p):
+    """The four gates' input weights side by side, (d, 4d), and their
+    recurrent weights as one float32 (H, dh, 4 dh) stack, so that a time
+    step makes one recurrent product instead of four."""
+    w = torch.cat([p[f"w{g}"] for g in _GATES], dim=1)
+    r = torch.stack([p[f"r{g}"] for g in _GATES], dim=2).float()
+    H, dh = r.shape[0], r.shape[1]
+    return w, r.reshape(H, dh, 4 * dh)
+
+
+def _slstm_inputs(x, w):
+    """The gates' input pre-activations of x (..., d): (..., 4, d) in
+    float32, each rounded to x's dtype first, as the reference's per-gate
+    einsum is."""
+    gx = torch.einsum("...d,de->...e", x, w).float()
+    return gx.reshape(*x.shape[:-1], 4, x.shape[-1])
+
+
+def _slstm_step(gx, state, r, cfg):
+    """One step from the input pre-activations gx (B, 4, d) and the state
+    tuple (c, n, h, m), each (B, d)."""
     c, n, h, m = state
-    B, d = x_t.shape
+    B, d = h.shape
     H = cfg.n_heads
     dh = d // H
-    hh = h.reshape(B, H, dh).float()
-
-    def gate(wx, r):
-        rec = torch.einsum("bhd,hde->bhe", hh, r.float()).reshape(B, d)
-        return torch.einsum("bd,de->be", x_t, wx).float() + rec
-
-    zi = torch.tanh(gate(p["wz"], p["rz"]))
-    ii = gate(p["wi"], p["ri"])
-    ff = gate(p["wf"], p["rf"])
-    oo = torch.sigmoid(gate(p["wo"], p["ro"]))
+    rec = torch.bmm(h.reshape(B, H, dh).transpose(0, 1).float(), r)
+    pre = gx + rec.reshape(H, B, 4, dh).permute(1, 2, 0, 3).reshape(B, 4, d)
+    zi = torch.tanh(pre[:, 0])
+    ii = pre[:, 1]
+    ff = pre[:, 2]
+    oo = torch.sigmoid(pre[:, 3])
     lf = F.logsigmoid(ff)
     m_new = torch.maximum(lf + m, ii)
     i_e = torch.exp(ii - m_new)
@@ -144,14 +162,27 @@ def _slstm_cell(p, x_t, state, cfg):
     return (c_new, n_new, h_new, m_new)
 
 
+def _slstm_cell(p, x_t, state, cfg):
+    """One step.  x_t (B, d); state tuple (c, n, h, m) each (B, d)."""
+    w, r = _slstm_weights(p)
+    return _slstm_step(_slstm_inputs(x_t, w), state, r, cfg)
+
+
 def slstm_block(p, x, cfg, shd, state=None):
-    """x (B, S, d) loop over time.  Returns (out, final_state)."""
+    """x (B, S, d) loop over time.  Returns (out, final_state).  The input
+    projections of all S steps are one product before the loop and the
+    recurrent products of a step one bmm; the products' shapes differ from
+    the reference's per-step, per-gate ones, so a BLAS may sum in another
+    order: the result equals the reference's within the parity tests'
+    tolerances, not bit for bit."""
     B, S, d = x.shape
     if state is None:
         state = init_slstm_state(cfg, B, x.device)
+    w, r = _slstm_weights(p)
+    gx = _slstm_inputs(x, w)                              # (B,S,4,d)
     hs = []
     for t in range(S):
-        state = _slstm_cell(p, x[:, t], state, cfg)
+        state = _slstm_step(gx[:, t], state, r, cfg)
         hs.append(state[2])                               # emit h
     hs = torch.stack(hs, dim=1).to(x.dtype)               # (B,S,d)
     hs = rms_norm(hs, p["norm_h"], cfg.norm_eps)

@@ -114,8 +114,9 @@ class TrainController:
     # ------------------------------------------------ elastic / forking
     def remesh(self, mesh, specs):
         """Elastic restart: reload the current branch head onto a new
-        placement (``mesh`` a ``torch.device``; ``specs`` that shard over
-        a mesh axis raise ``ConfigError``, see ``CheckpointStore.restore``)."""
+        placement (``mesh`` a ``torch.device`` or a one-card
+        ``repro_torch.mesh.Mesh``; ``specs`` that shard over an axis of
+        size > 1 raise ``ConfigError``, see ``CheckpointStore.restore``)."""
         self.state = self.ckpt.restore(self.state, self.branch, mesh=mesh,
                                        specs=specs)
         return self.state

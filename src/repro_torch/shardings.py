@@ -1,16 +1,49 @@
-"""Logical-axis sharding rules, as far as one device.
+"""Logical-axis sharding rules: DP / FSDP / TP / EP / SP mapping onto a
+device mesh (``repro_torch.mesh``).
 
-The reference maps logical axis names (batch, heads, ff, experts, vocab,
-...) onto a device mesh for DP / FSDP / TP / EP / SP.  The port runs on one
-device: ``Sharding(None, cfg)`` has no mesh, tensor-parallel degree 1, data
-parallel size 1 and no rules, and ``constrain`` is the identity.  A spec is
-a tuple of mesh axis names (None for a replicated dim), the counterpart of
-a ``PartitionSpec``.  A mesh, and the expert-parallel ``moe_shard_map``,
-raise ``ConfigError`` until the mesh tooling is ported.
+Policy (the reference's, rule for rule):
+  * batch       -> ('pod','data')  (DP; dropped if batch doesn't divide)
+  * heads/ff/
+    dinner/...  -> 'model'          (TP; dropped when the dim doesn't
+                                     divide — e.g. xlstm's 4 heads stay
+                                     replicated and only the vocab is TP)
+  * experts     -> 'model'          (EP, ``moe_shard_map``)
+  * cache_seq   -> 'model'          (decode KV caches shard on sequence)
+  * vocab       -> 'model'          (embed d-dim + unembed vocab-dim; vocab
+                                     padded up to a multiple of the axis)
+  * FSDP (qwen1.5-110b): parameter d_model dim additionally sharded over
+    'data' (ZeRO-3).
+
+A spec is a tuple of mesh axis names (None for a replicated dim, a tuple of
+names for a dim over several axes), the counterpart of a ``PartitionSpec``.
+The rules come from ``mesh.axis_names`` and ``mesh.shape`` alone, so a mesh
+that binds no device (``make_production_mesh``) gives the production specs.
+Execution stays on one card: ``constrain`` is the identity (the card holds
+each tensor whole), and ``moe_shard_map`` runs its body when every axis it
+shards over has size 1; an axis of size > 1 raises ``ConfigError`` (the
+multi-card port).  ``Sharding(None, cfg)`` has no mesh, tensor-parallel
+degree 1, data-parallel size 1 and no rules, as in the reference.
 """
 from __future__ import annotations
 
+import math
+
 from .errors import ConfigError
+from .models.layers import padded_heads
+
+
+def _canonical(entry):
+    """A spec entry as a PartitionSpec keeps it: a tuple of one axis name
+    is the name, an empty tuple None."""
+    if isinstance(entry, (tuple, list)):
+        return None if not entry else entry[0] if len(entry) == 1 \
+            else tuple(entry)
+    return entry
+
+
+def P(*entries) -> tuple:
+    """A spec: the counterpart of ``PartitionSpec(*entries)``, a tuple."""
+    return tuple(_canonical(e) for e in entries)
 
 
 def _walk(tree, leaf, path=""):
@@ -27,36 +60,121 @@ class Sharding:
     """Resolves logical axis names to mesh axes for one (cfg, batch)."""
 
     def __init__(self, mesh, cfg, global_batch: int | None = None):
-        if mesh is not None:
-            raise ConfigError("Sharding over a device mesh is not ported "
-                              "yet; use Sharding(None, cfg)")
-        self.mesh = None
+        self.mesh = mesh
         self.cfg = cfg
-        self.dp_axes: tuple = ()
-        self.tp = 1
-        self.dp_size = 1
-        self.rules: dict = {}
+        if mesh is None:
+            self.dp_axes: tuple = ()
+            self.tp = 1
+            self.dp_size = 1
+            self.rules: dict = {}
+            return
+        names = mesh.axis_names
+        self.dp_axes = tuple(a for a in ("pod", "data") if a in names)
+        self.tp = mesh.shape["model"]
+        self.dp_size = math.prod(mesh.shape[a] for a in self.dp_axes)
+        batch_ok = (global_batch is None
+                    or global_batch % max(1, self.dp_size) == 0)
+        tp = self.tp
+
+        def tp_if(n):  # shard over model iff divisible
+            return "model" if n and n % tp == 0 else None
+
+        cfg_hp = padded_heads(cfg, tp)
+        # xlstm: no weight dim divides the model axis, so 'model' would sit
+        # idle — fold it into the batch axes (pure DP over all chips).
+        batch_axes: tuple | None = self.dp_axes if batch_ok else None
+        self.batch_uses_model = False
+        if cfg.family == "ssm" and global_batch is not None:
+            for cand in (self.dp_axes + ("model",), self.dp_axes):
+                n = math.prod(mesh.shape[a] for a in cand)
+                if cand and global_batch % n == 0:
+                    batch_axes = cand
+                    self.batch_uses_model = "model" in cand
+                    break
+        self.rules = {
+            "batch": batch_axes if batch_axes else None,
+            "seq": None,
+            "cache_seq": "model",
+            "heads": tp_if(cfg_hp),
+            "kv_heads": tp_if(cfg.n_kv_heads),
+            "heads_flat": tp_if(cfg_hp * cfg.dh) if tp_if(cfg_hp) else None,
+            "kv_flat": tp_if(cfg.n_kv_heads * cfg.dh)
+            if tp_if(cfg.n_kv_heads) else None,
+            "ff": tp_if(cfg.d_ff),
+            "shared_ff": tp_if(cfg.n_shared_experts * cfg.moe_d_ff),
+            "vocab": None if self.batch_uses_model else "model",
+            "dmodel_tp": None if self.batch_uses_model
+            else tp_if(cfg.d_model),
+            "dinner": tp_if(cfg.d_inner) if cfg.ssm_state else None,
+            "ssm_heads": tp_if(cfg.n_ssm_heads) if cfg.ssm_state else None,
+            "experts": tp_if(cfg.n_experts),
+            "fsdp": "data" if cfg.fsdp else None,
+            # sequence parallelism: FSDP archs keep the residual stream
+            # sequence-sharded over 'model' between layers
+            "seq_res": "model" if cfg.fsdp else None,
+        }
 
     @property
     def padded_vocab(self) -> int:
-        """The vocab padded to a multiple of 16: without a mesh the
-        reference pads for its 16-way model axis."""
-        return -(-self.cfg.vocab // 16) * 16
+        """The vocab padded to a multiple of the model axis (of 16 without
+        a mesh, as in the reference)."""
+        v = self.cfg.vocab
+        tp = self.tp if self.mesh is not None else 16
+        return -(-v // tp) * tp
 
     def spec(self, *names) -> tuple:
-        return tuple(self.rules.get(n, None) if isinstance(n, str) else n
-                     for n in names)
+        return P(*[self.rules.get(n, None) if isinstance(n, str) else n
+                   for n in names])
 
     def constrain(self, x, *names):
+        """The identity: one card holds each tensor whole."""
         return x
 
     # ---------------- parameter specs ----------------
     def _leaf_spec(self, path: str, leaf) -> tuple:
-        """A parameter leaf's spec.  The reference's rule starts from
-        ``rules["fsdp"]``, which a mesh-less Sharding lacks, so on one
-        device it raises KeyError (src/repro/shardings.py:111); so does
-        this one.  The per-leaf rules come with the mesh port."""
-        return (self.rules["fsdp"],)
+        """A parameter leaf's spec.  Without a mesh the rules are empty and
+        ``rules["fsdp"]`` raises KeyError, as in the reference."""
+        r = self.rules
+        fsdp = r["fsdp"]
+        parts = path.split("/")
+        name = parts[-1]
+        stacked = parts[0] in ("layers", "groups")
+        pre = (None,) if stacked else ()
+        nd = getattr(leaf, "ndim", 0) - len(pre)
+
+        def sp(*axes):
+            return P(*pre, *axes)
+
+        if name == "embed":
+            return P(fsdp, r["dmodel_tp"])
+        if name == "unembed":
+            return P(fsdp, r["vocab"])
+        if self.cfg.family == "ssm":       # xlstm: DP + vocab TP only
+            return sp(*([None] * nd))
+        if nd == 3 and name in ("w_in", "w_gate", "w_out"):
+            # routed expert stacks: EP over model, FSDP over data on the
+            # contracted dim
+            return sp(r["experts"], fsdp, None)
+        col = {"wq": r["heads_flat"], "wk": r["kv_flat"], "wv": r["kv_flat"],
+               "w_in": r["ff"], "w_gate": r["ff"],
+               "shared_w_in": r["shared_ff"], "shared_w_gate": r["shared_ff"],
+               "in_z": r["dinner"], "in_x": r["dinner"],
+               "in_dt": r["ssm_heads"]}
+        if name in col:
+            return sp(fsdp, col[name])
+        row = {"wo": r["heads_flat"], "w_out": r["ff"],
+               "shared_w_out": r["shared_ff"], "out_proj": r["dinner"]}
+        if name in row:
+            return sp(row[name], fsdp)
+        if name == "bq":
+            return sp(r["heads_flat"])
+        if name == "conv_w":
+            return sp(None, r["dinner"])
+        if name in ("A_log", "D", "dt_bias"):
+            return sp(r["ssm_heads"])
+        if name == "norm" and self.cfg.ssm_state:
+            return sp(r["dinner"])
+        return sp(*([None] * nd))          # norms, router, biases, stubs
 
     def param_specs(self, params):
         return _walk(params, self._leaf_spec)
@@ -75,24 +193,24 @@ class Sharding:
         def leaf(path, x):
             name = path.split("/")[-1]
             if name in ("k", "v", "attn_k", "attn_v"):
-                return (None, r.get("batch"), "model", None, None)
+                return P(None, r.get("batch"), "model", None, None)
             if name in ("ks", "vs"):
-                return (None, r.get("batch"), "model", None)
+                return P(None, r.get("batch"), "model", None)
             if name == "conv":
-                return (None, r.get("batch"), None, r.get("dinner"))
+                return P(None, r.get("batch"), None, r.get("dinner"))
             if name == "ssd":
-                return (None, r.get("batch"), r.get("ssm_heads"), None, None)
+                return P(None, r.get("batch"), r.get("ssm_heads"), None, None)
             nd = getattr(x, "ndim", 0)
             if nd == 0:
-                return ()
+                return P()
             # xlstm stacked recurrent states: leading stack dims precede B
             if "mlstm" in path:
                 lead = 2 if cfg.slstm_at else 1
-                return (*([None] * lead), r.get("batch"),
+                return P(*([None] * lead), r.get("batch"),
                         *([None] * (nd - lead - 1)))
             if "slstm" in path:
-                return (None, r.get("batch"), *([None] * (nd - 2)))
-            return (r.get("batch"), *([None] * (nd - 1)))
+                return P(None, r.get("batch"), *([None] * (nd - 2)))
+            return P(r.get("batch"), *([None] * (nd - 1)))
         return _walk(cache_tree, leaf)
 
     def state_specs(self, state_tree):
@@ -102,9 +220,27 @@ class Sharding:
                 "opt": {"mu": pspec, "nu": pspec, "master": pspec,
                         "step": ()}}
 
+    # ---------------- MoE expert parallelism ----------------
     def moe_shard_map(self, local_fn, xt, p):
-        raise ConfigError("the expert-parallel MoE over a mesh is not "
-                          "ported yet")
+        """The gather-EP MoE body for each (dp shard, model shard) of the
+        mesh, the reference's ``shard_map``.  The port runs it on one
+        card: every axis it shards over (the batch axes, 'model' for the
+        experts and the combine, 'data' for FSDP) must have size 1.  Then
+        the one shard holds every token and expert (``e_start`` 0,
+        ``e_local`` E), and FSDP's all-gather, the combine's sum over
+        'model' and the DP means of the aux losses are identities.  An
+        axis of size > 1 raises ConfigError."""
+        axes = {"model", *(self.rules["batch"] or ()),
+                *((self.rules["fsdp"],) if self.rules["fsdp"] else ())}
+        wide = sorted(a for a in axes if self.mesh.shape.get(a, 1) > 1)
+        if wide:
+            raise ConfigError(f"the expert-parallel MoE over mesh axes "
+                              f"{wide} of size > 1 runs across cards: that "
+                              f"is the multi-card port")
+        routed = {k: p[k] for k in ("router", "w_in", "w_gate", "w_out")
+                  if k in p}
+        return local_fn(xt, routed, e_start=0, e_local=self.cfg.n_experts,
+                        axis_name="model")
 
 
 def make_sharding(mesh, cfg, global_batch=None) -> Sharding:

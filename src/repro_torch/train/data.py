@@ -7,8 +7,8 @@ byte.  ``prefetch`` overlaps host generation with device steps: a
 background thread fills a bounded queue with batches staged in pinned host
 memory, and each batch is copied to the engine's device
 (``kernels.ops.ready_device()``) without blocking the host.
-``shard_batch`` places a host batch on the engine's device; there is no
-mesh on one device.
+``shard_batch`` places a host batch on the engine's device, or on the card
+of a one-card mesh.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch
 
 from ..errors import ConfigError, InvariantViolation
 from ..kernels import ops
+from ..mesh import Mesh
 
 _POLL_S = 0.05            # how often a blocked worker looks at its stop flag
 _JOIN_S = 10.0            # how long close() waits for the worker to end
@@ -121,11 +122,20 @@ class Prefetcher:
 
 
 def shard_batch(batch: dict, mesh=None, shd=None) -> dict:
-    """Host numpy batch -> tensors on the engine's device.  A mesh raises
-    ConfigError: the port runs on one device."""
-    if mesh is not None:
-        raise ConfigError("shard_batch over a device mesh is not ported "
-                          "yet; pass mesh=None")
-    dev = ops.ready_device()
-    return {k: torch.as_tensor(np.asarray(v)).to(dev)
-            for k, v in batch.items()}
+    """Host numpy batch -> tensors on the engine's device, or, with a
+    ``repro_torch.mesh.Mesh`` and its ``Sharding``, on the mesh's card: each
+    input's spec shards dim 0 over the batch axes, which must all have
+    size 1 (else ConfigError: the multi-card port)."""
+    if mesh is None:
+        dev = ops.ready_device()
+        return {k: torch.as_tensor(np.asarray(v)).to(dev)
+                for k, v in batch.items()}
+    if not isinstance(mesh, Mesh) or shd is None:
+        raise ConfigError("shard_batch over a mesh takes a "
+                          "repro_torch.mesh.Mesh and its Sharding")
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        dev = mesh.device_for(shd.spec("batch", *([None] * (v.ndim - 1))))
+        out[k] = torch.as_tensor(v).to(dev)
+    return out

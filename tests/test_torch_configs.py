@@ -15,6 +15,7 @@ from repro.models import model as RM
 from repro.shardings import Sharding as RSharding
 from repro_torch import configs as C
 from repro_torch.errors import ConfigError
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as M
 from repro_torch.shardings import Sharding, make_sharding
 
@@ -98,11 +99,13 @@ def test_one_device_sharding():
 
 
 def test_a_mesh_is_not_ported_yet():
+    """A mesh builds its rules now; running the expert-parallel MoE over
+    an axis of size > 1 is the multi-card port and raises ConfigError."""
     cfg = C.smoke(C.ARCHS["olmoe-1b-7b"])
-    with pytest.raises(ConfigError, match="not ported yet"):
-        Sharding(object(), cfg)
-    with pytest.raises(ConfigError, match="not ported yet"):
-        Sharding(None, cfg).moe_shard_map(None, None, None)
+    shd = Sharding(make_production_mesh(), cfg)
+    assert (shd.tp, shd.dp_size) == (16, 16)
+    with pytest.raises(ConfigError, match="multi-card port"):
+        shd.moe_shard_map(None, None, {})
 
 
 def test_param_specs_raise_key_error_without_a_mesh_as_the_reference():

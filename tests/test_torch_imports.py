@@ -38,6 +38,20 @@ def test_the_walk_sees_the_port():
     assert "src/repro_torch/storage/durable/segment.py" in FILES
 
 
+def test_every_reference_module_has_a_counterpart():
+    """Each module of src/repro has one at the same relative path under
+    src/repro_torch (the mesh, dry-run, roofline and analysis modules
+    were the last)."""
+    ref = ROOT / "src" / "repro"
+    missing = [str(p.relative_to(ref)) for p in sorted(ref.rglob("*.py"))
+               if not (ROOT / "src" / "repro_torch" / p.relative_to(ref))
+               .exists()]
+    assert missing == []
+    for rel in ("analysis/engine.py", "launch/mesh.py", "launch/dryrun.py",
+                "roofline.py"):
+        assert f"src/repro_torch/{rel}" in FILES
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_imports_nothing_of_repro_or_jax(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)

@@ -24,6 +24,7 @@ from repro_torch.core import ChunkParams, ForkBase
 from repro_torch.errors import ConfigError
 from repro_torch.kernels import ops
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import make_mesh_for, make_production_mesh
 from repro_torch.runtime import run_resilient
 from repro_torch.shardings import Sharding
 from repro_torch.train import (AdamWConfig, SyntheticLM, init_train_state,
@@ -223,8 +224,20 @@ def test_prefetch_hands_a_worker_error_to_the_consumer():
 
 
 def test_shard_batch_raises_for_a_mesh():
+    """Over a mesh, shard_batch takes a launch.mesh.Mesh and its Sharding;
+    a batch axis of size > 1 (the 16x16 mesh) is the multi-card port."""
+    batch = SyntheticLM(512, 8, 16).batch_at(0)
     with pytest.raises(ConfigError):
-        shard_batch(SyntheticLM(512, 8, 1).batch_at(0), mesh=object())
+        shard_batch(batch, mesh=object())
+    cfg = smoke(ARCHS["tinyllama-1.1b"])
+    wide = make_production_mesh()
+    with pytest.raises(ConfigError):
+        shard_batch(batch, wide, Sharding(wide, cfg, 16))
+    one = make_mesh_for(1, device="cpu")
+    got = shard_batch(batch, one, Sharding(one, cfg, 16))
+    for k, v in batch.items():
+        assert got[k].device.type == "cpu" and np.array_equal(
+            got[k].numpy(), v)
 
 
 def test_the_cuda_device_without_a_gpu_raises():
