@@ -174,10 +174,31 @@ Phases, in order; any failed check exits non-zero:
    have the plain versions' root cids (the bitmap held against its plain
    version on every leaf).  The line "mesh and cost path: {...}" gives
    each part and (c)'s launches.
+11. Execution on a mesh of ranks (src/repro_torch/{mesh,launch/mesh,
+   shardings}.py and the DTensor paths of the models, the train step,
+   the checkpoint store and the controller): (0) a one-rank NCCL group
+   builds a 1 x 1 DeviceMesh and runs one all-reduce; then the one-rank
+   references here; then two spawned ranks that share the card over gloo
+   (NCCL takes a card a rank) run (a) TinyLlama-1.1B whole on (data,
+   model) = (1, 2), heads, ff and vocab over 'model' and the decode cache
+   over 'model' on its sequence: prefill 4 x 512 and 16 teacher-forced
+   decode steps within WIDE_TOL of the one-rank logits, and a train step
+   at 1 x 2048 within phase 9 (b)'s limits of the one-rank step; (b)
+   olmoe-1b-7b at full width, two layers, 32 experts a rank: prefill 2 x
+   512 within WIDE_TOL of the one-rank gather path (deterministic
+   algorithms on both); (c) (a)'s params saved from the mesh by a
+   TrainController (the one-rank save's uid) and remeshed onto (2, 1)
+   and back onto (1, 2), each rank's shards bit for bit the blocks the
+   specs name, and the saved head against the plain versions
+   (saved_vs_plain).  Each part's wall time, peak memory a rank and
+   collective counts (CommDebugMode) are in the line "mesh of ranks:
+   {...}"; (c)'s save launches the bitmap, counted from 0 just before it
+   and read just after.
 
 The line before the last is one JSON object with each kernel's launches on
-the main path (and on phases 5, 6, 7 and 9), its largest |kernel - plain|
-over phases 2, 5, 7 and 9, its time through its wrapper (ms),
+the main path (and on phases 5, 6, 7, 9, 10 and 11), its largest
+|kernel - plain| over phases 2, 5, 7, 9, 10 and 11, its time through its
+wrapper (ms),
 its kernel's device time alone (kernel_ms, from torch.profiler), its plain
 version's time and its bound; the last line is {"ok": true, "device":
 {...}}.  Needs no network.  Exits non-zero, printing no result, when no
@@ -2388,11 +2409,13 @@ def train_full(dev, cfg, B: int = TRAIN_B, S: int = TRAIN_S) -> dict:
 
 def microbatch_gap(init: dict, runs: dict) -> dict:
     """How far microbatch 4's step lies from microbatch 1's, both from
-    state ``init``: the largest |param difference|, the relative gaps of
-    gnorm and loss, and (``dir_off``) the largest share, over the leaves,
-    of the entries whose step-1 direction (new master - old master) / lr
-    differs by more than 1 (a step-1 Adam update moves an entry by about
-    lr x sign(g), so a flipped gradient sign moves it by about 2)."""
+    state ``init`` (``runs[1]`` and ``runs[4]``, each (state, metrics);
+    phase 11 holds a mesh's step in 4 against one rank's in 1): the
+    largest |param difference|, the relative gaps of gnorm and loss, and
+    (``dir_off``) the largest share, over the leaves, of the entries whose
+    step-1 direction (new master - old master) / lr differs by more than 1
+    (a step-1 Adam update moves an entry by about lr x sign(g), so a
+    flipped gradient sign moves it by about 2)."""
     (s1, m1), (s4, m4) = runs[1], runs[4]
     lr = float(m1["lr"])
     p4 = dict(tree_leaves(s4["params"]))
@@ -2865,6 +2888,360 @@ def mesh_cost_path(dev) -> dict:
     return parts
 
 
+# ------------------------------------------------------------ phase 11
+
+# Execution on a mesh of ranks.  Two ranks share the card over gloo (NCCL
+# takes a card a rank; a one-rank NCCL group shows that its path starts).
+# (a) TinyLlama-1.1B whole on (data, model) = (1, 2): TP over heads, ff
+# and vocab, the decode cache over 'model' on its sequence; prefill
+# MC_B x MC_S and MC_DECODES teacher-forced decode steps against the
+# one-rank port within WIDE_TOL of the largest logit, and one train step at
+# TRAIN_B x TRAIN_S against the one-rank step within phase 9 (b)'s limits
+# (MB_TOL on params, loss and gnorm relative, step-1 directions turned).
+# (b) olmoe-1b-7b at full width, phase 8 (b)'s two layers, on (1, 2):
+# expert parallelism, 32 experts a rank, prefill MC_MOE_B x MC_MOE_S
+# against the one-rank gather path, both under deterministic algorithms,
+# within WIDE_TOL.  (c) (a)'s params saved from the mesh (the
+# TrainController's first checkpoint): the one-rank save's uid; remeshed
+# onto (2, 1) and back onto (1, 2), each rank's shards bit for bit the
+# blocks of the one-rank params that the specs name.
+MC_RANKS = 2
+MC_B, MC_S, MC_DECODES = SERVE_B, SERVE_S, 16
+MC_MOE_B, MC_MOE_S = 2, 512
+MC_TIMEOUT_S = 300.0      # a collective that waits longer fails its rank
+MC_SEEDS = {"params": 20, "tokens": 21, "moe": 22, "moe_tokens": 23,
+            "state": 24, "data": 25}
+
+
+def mc_configs():
+    """(a)'s and (b)'s configurations: TinyLlama-1.1B whole, olmoe-1b-7b
+    cut to phase 8 (b)'s two layers."""
+    from repro_torch.configs import ARCHS
+    return ARCHS["tinyllama-1.1b"], depth_cut(ARCHS["olmoe-1b-7b"])
+
+
+def _mc_nccl() -> dict:
+    """(0) In a one-rank NCCL group: a 1 x 1 DeviceMesh and one all-reduce
+    over its 'model' axis."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_for
+    mesh = make_mesh_for(1)
+    x = torch.full((4,), 3.0, device=mesh.device)
+    dist.all_reduce(x, group=mesh.group("model"))
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "mesh": repr(mesh),
+            "device_mesh": list(mesh.device_mesh.shape), "sum": x.tolist()}
+
+
+def _mc_serve_inputs(cfg, dev):
+    """(a)'s prompt and forced decode tokens, and (b)'s prompt."""
+    toks = _tokens(cfg.vocab, (MC_B, MC_S + MC_DECODES),
+                   MC_SEEDS["tokens"], dev)
+    return toks[:, :MC_S], [toks[:, MC_S + i:MC_S + i + 1]
+                            for i in range(MC_DECODES)]
+
+
+def _mc_sequence(params, cfg, shd, prompt, forced, place) -> list:
+    """Prefill ``prompt`` into a cache of MC_S + MC_DECODES rows, then a
+    decode step a forced token; each step's logits, whole, on the host."""
+    from repro_torch.models import model as M
+
+    def host(x):
+        return (x.full_tensor() if hasattr(x, "full_tensor") else x
+                ).float().cpu()
+    B = prompt.shape[0]
+    cache, logits = M.prefill(params, place({"tokens": prompt}), cfg, shd,
+                              cache_len=MC_S + MC_DECODES)
+    out = [host(logits)]
+    for i, tok in enumerate(forced):
+        pos = torch.full((B,), MC_S + i, dtype=torch.int32,
+                         device=tok.device)
+        cache, logits = M.decode_step(params, cache, place(
+            {"tokens": tok, "pos": pos}), cfg, shd)
+        out.append(host(logits))
+    return out
+
+
+def _mc_block(full: torch.Tensor, local: torch.Tensor, placements,
+              coords) -> bool:
+    """Whether ``local`` is the block of ``full`` that ``placements`` give
+    the rank at mesh ``coords``."""
+    idx = [slice(0, n) for n in full.shape]
+    for p, (c, n) in zip(placements, coords):
+        if p.is_shard():       # cuts the slice the axes before it left
+            lo, hi = idx[p.dim].start, idx[p.dim].stop
+            w = (hi - lo) // n
+            idx[p.dim] = slice(lo + c * w, lo + (c + 1) * w)
+    return torch.equal(full[tuple(idx)], local)
+
+
+def _mc_shards_equal(tree, whole, mesh) -> bool:
+    coords = [(mesh.device_mesh.get_local_rank(i), n)
+              for i, n in enumerate(mesh.shape.values())]
+    want = dict(tree_leaves(whole))
+    got = dict(tree_leaves(tree))
+    return sorted(got) == sorted(want) and all(
+        _mc_block(want[n], d.to_local(), d.placements, coords)
+        for n, d in got.items())
+
+
+def _mc_rank() -> dict:
+    """One rank of phase 11's (a), (b) and (c); rank 0 returns the whole
+    logits and the comparisons, every rank its times, peak memory and
+    collective counts."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.ckpt import CheckpointStore
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.mesh import all_gather_routed
+    from repro_torch.models import model as M
+    from repro_torch.runtime import TrainController, deterministic
+    from repro_torch.shardings import Sharding
+    from repro_torch.train import (AdamWConfig, SyntheticLM,
+                                   init_train_state, make_train_step,
+                                   shard_batch)
+
+    m12 = make_mesh_for(MC_RANKS)
+    m21 = make_mesh_for(MC_RANKS, model_axis=1)
+    dev = m12.device
+    cuda = dev.type == "cuda"
+    rank = dist.get_rank()
+    cfg, ocfg = mc_configs()
+    out = {"rank": rank, "meshes": [repr(m12), repr(m21)],
+           "routed": all_gather_routed()}
+
+    inner_peaks: list = []     # peaks that ``extra`` reset inside a part
+
+    def part(name, fn):
+        synchronize(dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        inner_peaks.clear()
+        t = time.perf_counter()
+        with CommDebugMode() as comm:
+            res = fn()
+        synchronize(dev)
+        out[name] = {"s": time.perf_counter() - t,
+                     "peak_bytes": max([torch.cuda.max_memory_allocated(),
+                                        *inner_peaks]) if cuda else None,
+                     "collectives": {str(k).split(".")[-1]: v for k, v in
+                                     comm.get_comm_counts().items()}}
+        return res
+
+    def extra(fn):
+        """``fn()`` and the most memory it held on this rank's card beyond
+        what the rank held before it (None off CUDA)."""
+        if not cuda:
+            return fn(), None
+        synchronize(dev)
+        inner_peaks.append(torch.cuda.max_memory_allocated())
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        synchronize(dev)
+        return res, torch.cuda.max_memory_allocated() - held
+
+    # (a) serving
+    shd = Sharding(m12, cfg, MC_B)
+    prompt, forced = _mc_serve_inputs(cfg, dev)
+
+    def place(b):
+        return shard_batch({k: v.cpu().numpy() for k, v in b.items()},
+                           m12, shd)
+
+    def serve():
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            MC_SEEDS["params"]), shards=4, device=dev, shd=shd)
+        with torch.no_grad():
+            return params, _mc_sequence(params, cfg, shd, prompt, forced,
+                                        place)
+    params, logits = part("serve", serve)
+    if rank == 0:
+        out["serve_logits"] = logits
+
+    # (c) save from the mesh, remesh onto (2, 1) and back onto (1, 2)
+    def save_remesh():
+        ck = CheckpointStore()
+        ops.reset_launches()
+        t = time.perf_counter()
+        ctl, save_extra = extra(lambda: TrainController(
+            make_train_step(cfg, shd), params, None, ck, branch="run"))
+        res = {"save_s": time.perf_counter() - t,
+               "launches": ops.launches(), "save_extra_bytes": save_extra,
+               "shard_bytes": sum(d.to_local().nbytes
+                                  for d in _leaves(params))}
+        if rank == 0:
+            res["uid"] = ck.db.get(ck.key, "run").uid.hex()
+        whole = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            MC_SEEDS["params"]), shards=4, device=dev)
+        res["leaf_bytes"] = max(a.nbytes for a in _leaves(whole))
+        for name, mesh in (("r21", m21), ("r12", m12)):
+            t = time.perf_counter()
+            got, res[f"{name}_extra_bytes"] = extra(lambda: ctl.remesh(
+                mesh, Sharding(mesh, cfg, MC_B).param_specs(whole)))
+            res[f"{name}_s"] = time.perf_counter() - t
+            res[f"{name}_equal"] = _mc_shards_equal(got, whole, mesh)
+            res[f"{name}_placements"] = sorted({str(tuple(
+                map(str, d.placements))) for d in _leaves(got)})
+            del got
+        if rank == 0:
+            t = time.perf_counter()
+            res["vs_plain"] = saved_vs_plain(ck, "run", whole, dev,
+                                             fphash=False)
+            res["vs_plain_s"] = time.perf_counter() - t
+        return res
+    out["ckpt"] = part("save_remesh", save_remesh)
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) expert parallelism
+    oshd = Sharding(m12, ocfg, MC_MOE_B)
+
+    def moe():
+        p = M.init_params(ocfg, torch.Generator(device=dev).manual_seed(
+            MC_SEEDS["moe"]), shards=4, device=dev, shd=oshd)
+        toks = _tokens(ocfg.vocab, (MC_MOE_B, MC_MOE_S),
+                       MC_SEEDS["moe_tokens"], dev)
+        with torch.no_grad(), deterministic():
+            _, lg = M.prefill(p, shard_batch({"tokens": toks.cpu().numpy()},
+                                             m12, oshd), ocfg, oshd)
+        return lg.full_tensor().float().cpu()
+    lg = part("moe", moe)
+    if rank == 0:
+        out["moe_logits"] = lg
+
+    # (a) one train step, then (rank 0) the one-rank step from the same init
+    tshd = Sharding(m12, cfg, TRAIN_B)
+    data = SyntheticLM(cfg.vocab, TRAIN_S, TRAIN_B,
+                       seed=MC_SEEDS["data"]).batch_at(0)
+
+    def train():
+        state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(
+            MC_SEEDS["state"]), shards=4, device=dev, shd=tshd)
+        step = make_train_step(cfg, tshd, AdamWConfig())
+        with deterministic():
+            new, m = step(state, shard_batch(data, m12, tshd))
+        m = {k: float(v.full_tensor()) if hasattr(v, "full_tensor")
+             else float(v) for k, v in m.items()}
+        keep = {"params": M.tree_map(lambda a: a.full_tensor(),
+                                     new["params"]),
+                "opt": {"master": M.tree_map(lambda a: a.full_tensor(),
+                                             new["opt"]["master"])}}
+        return (keep if rank == 0 else None), m
+    keep, m = part("train", train)
+    if cuda:
+        torch.cuda.empty_cache()
+    out["train_metrics"] = m
+    if rank == 0:
+        t = time.perf_counter()
+        state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(
+            MC_SEEDS["state"]), shards=4, device=dev)
+        step = make_train_step(cfg, Sharding(None, cfg), AdamWConfig())
+        with deterministic():
+            one = step(state, shard_batch(data))
+        out["train_gap"] = microbatch_gap(state, {1: one, 4: (keep, m)})
+        out["train_one_rank_s"] = time.perf_counter() - t
+        out["train_one_metrics"] = {k: float(v) for k, v in one[1].items()}
+    dist.barrier()
+    return out
+
+
+def multicard_path(dev) -> dict:
+    """Phase 11: (0) a one-rank NCCL group, then the one-rank references
+    here, then (a), (b) and (c) in MC_RANKS ranks that share the card over
+    gloo; every comparison is checked."""
+    from repro_torch.ckpt import CheckpointStore
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import model as M
+    from repro_torch.runtime import deterministic
+    from repro_torch.shardings import Sharding
+
+    out = {}
+    if dev.type == "cuda":
+        t = time.perf_counter()
+        out["nccl"] = run_ranks(_mc_nccl, 1, backend="nccl", device="cuda",
+                                timeout_s=MC_TIMEOUT_S)[0]
+        out["nccl_s"] = time.perf_counter() - t
+        check(out["nccl"]["sum"] == [3.0] * 4
+              and out["nccl"]["device_mesh"] == [1, 1],
+              f"the one-rank NCCL group: {out['nccl']}")
+
+    # the one-rank references
+    t = time.perf_counter()
+    cfg, ocfg = mc_configs()
+    one = Sharding(None, cfg)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        MC_SEEDS["params"]), shards=4, device=dev)
+    prompt, forced = _mc_serve_inputs(cfg, dev)
+    with torch.no_grad():
+        want = _mc_sequence(params, cfg, one, prompt, forced, lambda b: b)
+    want_uid = CheckpointStore().save(params, "run", step=0).hex()
+    del params
+    p = M.init_params(ocfg, torch.Generator(device=dev).manual_seed(
+        MC_SEEDS["moe"]), shards=4, device=dev)
+    toks = _tokens(ocfg.vocab, (MC_MOE_B, MC_MOE_S), MC_SEEDS["moe_tokens"],
+                   dev)
+    with torch.no_grad(), deterministic():
+        _, want_moe = M.prefill(p, {"tokens": toks}, ocfg,
+                                Sharding(None, ocfg))
+    want_moe = want_moe.float().cpu()
+    del p
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["one_rank_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    ranks = run_ranks(_mc_rank, MC_RANKS, backend="gloo", device=dev.type,
+                      timeout_s=MC_TIMEOUT_S)
+    out["ranks_s"] = time.perf_counter() - t
+    routed = [r["routed"] for r in ranks]
+    check(routed == [dev.type == "cuda"] * MC_RANKS,
+          f"torch's functional all-gather routed through c10d on the ranks: "
+          f"{routed} (every CUDA mesh of ranks installs the route)")
+    r0 = ranks[0]
+    serve = [rel_err(g, w, cfg.vocab) for g, w in
+             zip(r0.pop("serve_logits"), want)]
+    out["serve_rel_err"] = max(serve)
+    check(len(serve) == MC_DECODES + 1 and max(serve) <= WIDE_TOL,
+          f"tinyllama on (1, 2): logits differ from one rank's by "
+          f"{serve} of the largest")
+    out["moe_rel_err"] = rel_err(r0.pop("moe_logits"), want_moe, ocfg.vocab)
+    check(out["moe_rel_err"] <= WIDE_TOL,
+          f"olmoe on (1, 2): prefill differs from the one-rank gather path "
+          f"by {out['moe_rel_err']} of the largest logit")
+    gap = r0["train_gap"]
+    check(gap["max_abs_diff"] <= MB_TOL and gap["gnorm_rel"] <= MB_GNORM_REL
+          and gap["loss_rel"] <= MB_LOSS_REL and gap["dir_off"] <= MB_DIR_OFF,
+          f"tinyllama's train step on (1, 2) against one rank's: {gap}")
+    ck = r0["ckpt"]
+    check(ck["uid"] == want_uid,
+          f"the save from the mesh has uid {ck['uid']}, one rank's "
+          f"{want_uid}")
+    check(all(r["ckpt"][f"{m}_equal"] for r in ranks for m in ("r21", "r12")),
+          "a remeshed shard is not its block of the saved params")
+    if dev.type == "cuda":
+        # leaf by leaf: a rank other than 0 sends its blocks and holds no
+        # leaf whole; a sharded restore holds the rank's shards and, on
+        # rank 0, the leaf being read and its parts
+        for r in ranks:
+            c = r["ckpt"]
+            check((r["rank"] == 0 or c["save_extra_bytes"] <= c["leaf_bytes"])
+                  and c["r12_extra_bytes"] <= c["shard_bytes"]
+                  + 2 * c["leaf_bytes"],
+                  f"rank {r['rank']} held more than its shards and a leaf "
+                  f"or two while saving or restoring: {c}")
+    check(ck["launches"]["boundary_bitmap"] > 0,
+          f"the bitmap never launched on the save from the mesh: "
+          f"{ck['launches']}")
+    out["ranks"] = ranks
+    out["launches"] = ck["launches"]
+    return out
+
+
 # ------------------------------------------------------------ breakdown
 
 def profile_put(v1: bytes) -> dict:
@@ -3245,13 +3622,20 @@ def main() -> int:
     check(mesh["boundary_bitmap"] > 0,
           f"the bitmap never launched on the mesh path: {mesh}")
     print("mesh and cost path: " + json.dumps(m10))
+
+    t = time.perf_counter()
+    m11 = multicard_path(dev)
+    print(f"phase 11 (mesh of ranks): {time.perf_counter() - t:.1f} s")
+    multicard = m11["launches"]
+    print("mesh of ranks: " + json.dumps(m11))
     # each kernel's largest |kernel - plain| over phase 2, the timed
-    # shapes, phase 7 and the saved states of phases 5, 9 and 10
+    # shapes, phase 7 and the saved states of phases 5, 9, 10 and 11
     saved = [cp["controller"]["vs_plain"]["max_abs_err"]] + [
         m9["entry_points"][k]["vs_plain"]["max_abs_err"]
         for k in ("launcher", "example")] + [
         m10["mesh"][k]["max_abs_err"]
-        for k in ("params_vs_plain", "state_vs_plain")]
+        for k in ("params_vs_plain", "state_vs_plain")] + [
+        m11["ranks"][0]["ckpt"]["vs_plain"]["max_abs_err"]]
     kernels = []
     for row in timed:
         src, replaces = SOURCES[row["name"]]
@@ -3269,6 +3653,7 @@ def main() -> int:
             "cluster_launches": cluster[row["name"]],
             "train_launches": train[row["name"]],
             "mesh_launches": mesh[row["name"]],
+            "multicard_launches": multicard[row["name"]],
             "kernel_ms": row["kernel_ms"],
             "registers": ptx[row["name"]]["registers"]})
     print(json.dumps({"kernels": kernels}))

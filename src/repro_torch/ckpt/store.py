@@ -23,12 +23,17 @@ and context JSON are the same strings — so a checkpoint written by
 either package restores in the other.
 
 Restore rebuilds tensors from the manifest and places each on its template
-leaf's device, on ``mesh`` when that is a ``torch.device``, or on the one
-card of a ``repro_torch.mesh.Mesh``: the checkpoint is
-placement-agnostic.  On one card the only placement a sharding spec can
-ask for is a whole tensor:
-specs that name an axis of size > 1 (any axis, for a plain device) raise
-``ConfigError``.
+leaf's device, on ``mesh`` when that is a ``torch.device``, or by ``specs``
+on a ``repro_torch.mesh.Mesh``: the checkpoint is placement-agnostic.  On
+a mesh of ranks (a process per device), a save gathers one leaf at a time
+whole on rank 0 alone (``mesh.gather_whole``), which puts it and frees it,
+so the checkpoint's bytes and uid are those of a one-device save of the
+same values; a restore reads one leaf at a time on rank 0 and sends each
+rank its block (``Mesh.place_from_root``).  No rank but rank 0 holds a
+leaf whole, and rank 0 one or two at a time.  Only rank 0's store is read
+or written there.  Specs
+that name an axis (for a plain device) or an axis of size > 1 (for a
+one-device mesh) raise ``ConfigError``.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ import torch
 from ..core import ForkBase, FBlob, FMap, NoSuchRef, POSTree, load_fobject
 from ..core import chunk as ck
 from ..errors import CheckpointMissing, ConfigError, TensorMissing
-from ..mesh import Mesh, spec_axes
+from ..mesh import Mesh, gather_whole, spec_axes
 from ..storage import WriteBuffer
 
 # numpy's dtype names (what the manifest stores) <-> torch dtypes; the
@@ -111,19 +116,73 @@ def _unflatten(tree, leaves):
     return kind(*(v for _, v in values))              # a namedtuple
 
 
+def _dtype_name(t: torch.Tensor) -> str:
+    name = _DTYPE_NAMES.get(t.dtype)
+    if name is None:
+        raise ConfigError(f"checkpoint leaf dtype {t.dtype} has no "
+                          f"stored name")
+    return name
+
+
 def _leaf_record(leaf) -> tuple[bytes, str, list[int]]:
     """The bytes, dtype name and shape of one leaf.  A device tensor is
     copied to the host here (the put path copies its bytes back to the
     device for the chunker)."""
     t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(leaf)
     t = t.detach()
-    name = _DTYPE_NAMES.get(t.dtype)
-    if name is None:
-        raise ConfigError(f"checkpoint leaf dtype {t.dtype} has no "
-                          f"stored name")
+    name = _dtype_name(t)
     # a 0-d tensor cannot be viewed as bytes: flatten it first
     raw = t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
     return raw, name, list(t.shape)
+
+
+def _has_dtensor(tree) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(leaf, DTensor) for _, leaf in _leaf_paths(tree))
+
+
+def _wholes(paths):
+    """``(name, leaf)`` of ``paths`` one at a time, each ``DTensor`` whole
+    on its mesh's origin and None elsewhere (``gather_whole``, collectives
+    that every rank joins in the same order), any other leaf as it is."""
+    from torch.distributed.tensor import DTensor
+    for name, leaf in paths:
+        yield name, (gather_whole(leaf) if isinstance(leaf, DTensor)
+                     else leaf)
+
+
+def _spec_leaves(like, specs) -> list:
+    """The spec of each leaf of ``like``, in ``_leaf_paths`` order: the
+    entry of ``specs`` at the leaf's path (a tuple of mesh axis names; a
+    missing or None subtree replicates)."""
+    out = []
+
+    def walk(node, sp):
+        kids = _children(node)
+        if kids is None:
+            out.append(sp)
+            return
+        for k, child in kids:
+            sub = None
+            if isinstance(sp, dict):
+                sub = sp.get(k)
+            elif isinstance(sp, (list, tuple)) and isinstance(k, int) \
+                    and not _is_spec(sp):
+                sub = sp[k]
+            elif sp is not None and not _is_spec(sp):
+                raise ConfigError(f"specs {sp!r} do not follow the tree")
+            walk(child, sub)
+    walk(like, specs)
+    return out
+
+
+def _is_spec(x) -> bool:
+    """A spec: a tuple whose entries are None, axis names or tuples of
+    axis names."""
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str) or (
+            isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x)
 
 
 def _tensor_of(data: bytes, meta: dict, device) -> torch.Tensor:
@@ -184,12 +243,14 @@ class CheckpointStore:
         self.db.sync()
 
     # ------------------------------------------------------------- save
-    def _commit_leaves(self, state, manifest: FMap) -> None:
-        """Every leaf's bytes as an FBlob, all in ONE put_many, and its
-        manifest entry."""
+    def _commit_leaves(self, leaves, manifest: FMap) -> None:
+        """Every leaf's bytes (``leaves``: ``(name, leaf)`` pairs, taken one
+        at a time) as an FBlob, all in ONE put_many, and its manifest
+        entry."""
         batch = WriteBuffer(self.db.store)
-        for name, leaf in _leaf_paths(state):
+        for name, leaf in leaves:
             raw, dtype, shape = _leaf_record(leaf)
+            del leaf               # the next leaf comes before the loop
             root = FBlob(raw).commit(batch)
             meta = {"cid": root.hex(), "dtype": dtype, "shape": shape}
             manifest.set(name.encode(), json.dumps(meta).encode())
@@ -203,15 +264,45 @@ class CheckpointStore:
         A checkpoint save is an epoch boundary for the engine's live
         tables (repro_torch.live): any flat-path deltas are folded into
         their POS-Trees first, so the checkpoint never lands on a store
-        whose durable state lags the served state."""
+        whose durable state lags the served state.
+
+        A state of ``DTensor``s (a mesh of ranks) is gathered one leaf at
+        a time on rank 0 alone, which commits it; every rank returns its
+        uid (its broadcast is the barrier: no rank returns before the
+        checkpoint is in)."""
+        if _has_dtensor(state):
+            return self._save_ranks(state, branch, step, extra)
+        return self._save_leaves(_leaf_paths(state), branch, step, extra)
+
+    def _save_leaves(self, leaves, branch: str, step: int,
+                     extra: dict | None) -> bytes:
         if getattr(self.db, "_live", None):
             self.db.commit_epoch(context=json.dumps(
                 {"ckpt_step": step}).encode())
         head = self.db.get(self.key, branch)
         manifest = (head.map() if head is not None else FMap())
-        self._commit_leaves(state, manifest)
+        self._commit_leaves(leaves, manifest)
         ctx = json.dumps({"step": step, **(extra or {})}).encode()
         return self.db.put(self.key, manifest, branch, context=ctx)
+
+    def _save_ranks(self, state, branch: str, step: int,
+                    extra: dict | None) -> bytes:
+        """``save`` on a mesh of ranks: every rank joins each leaf's gather
+        in turn and rank 0 commits the leaves as they come."""
+        import torch.distributed as dist
+        paths = _leaf_paths(state)
+        for _, leaf in paths:      # every rank, before any collective
+            if isinstance(leaf, torch.Tensor):
+                _dtype_name(leaf)
+        leaves = _wholes(paths)
+        uid = [None]
+        if dist.get_rank() == 0:
+            uid[0] = self._save_leaves(leaves, branch, step, extra)
+        else:
+            for _ in leaves:
+                pass
+        dist.broadcast_object_list(uid, src=0)
+        return uid[0]
 
     def save_on_base(self, state, base_uid: bytes, *, step: int,
                      extra: dict | None = None) -> bytes:
@@ -219,7 +310,7 @@ class CheckpointStore:
         version (two pods racing on the same step produce two untagged
         heads, paper §3.3.2)."""
         manifest = self.db.get(self.key, uid=base_uid).map()
-        self._commit_leaves(state, manifest)
+        self._commit_leaves(_leaf_paths(state), manifest)
         ctx = json.dumps({"step": step, **(extra or {})}).encode()
         return self.db.put(self.key, manifest, base_uid=base_uid,
                            context=ctx)
@@ -230,41 +321,97 @@ class CheckpointStore:
         """Rebuild the pytree of ``like`` (its structure names the leaves;
         dtypes and shapes come from the manifest).  Each tensor lands on
         its template leaf's device (the CPU for a leaf that is not a
-        tensor), on ``mesh`` when that is a ``torch.device``, or on the
-        one card of ``mesh`` when that is a ``repro_torch.mesh.Mesh`` — the
-        restart placement need not match the writer's.  As in the
-        reference, ``specs`` are ignored without a ``mesh``.  With a
-        device they must replicate every leaf (no entry names a mesh
-        axis); with a Mesh every axis they name must have size 1; else
-        ConfigError: sharding across cards is the multi-card port."""
+        tensor), on ``mesh`` when that is a ``torch.device``, or placed by
+        ``specs`` (a tree of specs shaped as ``like``) on a
+        ``repro_torch.mesh.Mesh`` — the restart placement need not match
+        the writer's.  On a mesh of ranks rank 0 reads and every rank gets
+        its shards.  As in the reference, ``specs`` are ignored without a
+        ``mesh``.  With a device they must replicate every leaf (no entry
+        names a mesh axis), else ConfigError."""
         if isinstance(mesh, Mesh):
-            mesh = mesh.device_for(specs)
-        elif mesh is not None and not isinstance(mesh, torch.device):
+            if mesh.spmd:
+                return self._restore_ranks(like, branch, uid, mesh, specs)
+            if mesh.devices is None:
+                raise ConfigError(f"restore onto {mesh}: an abstract mesh "
+                                  f"binds no device")
+            leaf_specs = _spec_leaves(like, specs)
+            return _unflatten(like, iter(
+                mesh.place(t, sp) for t, sp in
+                zip(self._read_leaves(like, branch, uid, mesh.device),
+                    leaf_specs)))
+        if mesh is not None and not isinstance(mesh, torch.device):
             raise ConfigError(f"restore onto {type(mesh).__name__}: only a "
                               f"torch.device or a Mesh is supported")
-        elif mesh is not None and specs is not None:
+        if mesh is not None and specs is not None:
             named = spec_axes(specs)
             if named:
                 raise ConfigError(f"restore onto {mesh} with specs that "
                                   f"shard over mesh axes {sorted(set(named))}"
                                   f": one device has no mesh")
+        return _unflatten(like, iter(self._read_leaves(like, branch, uid,
+                                                       mesh)))
+
+    def _read_leaves(self, like, branch, uid, device) -> list:
+        """The tensors of ``like``'s leaves, in ``_leaf_paths`` order, on
+        ``device`` (None: each template leaf's device, or the CPU)."""
+        out = []
+        for (_, leaf), meta in zip(_leaf_paths(like),
+                                   self._leaf_metas(like, branch, uid)):
+            dev = (device if device is not None
+                   else leaf.device if isinstance(leaf, torch.Tensor)
+                   else torch.device("cpu"))
+            out.append(self._read_leaf(meta, dev))
+        return out
+
+    def _leaf_metas(self, like, branch, uid) -> list[dict]:
+        """The manifest entry of each of ``like``'s leaves, in
+        ``_leaf_paths`` order; CheckpointMissing, TensorMissing, or
+        ConfigError for a dtype this torch lacks."""
         handle = self.db.get(self.key, branch, uid=uid)
         if handle is None:
             raise CheckpointMissing(f"{self.key!r}@{branch or uid!r}")
         manifest = handle.map()
         out = []
-        for name, leaf in _leaf_paths(like):
+        for name, _ in _leaf_paths(like):
             raw = manifest.get(name.encode())
             if raw is None:
                 raise TensorMissing(name)
             meta = json.loads(raw)
-            tree = POSTree.from_root(self.db.store, ck.BLOB,
-                                     bytes.fromhex(meta["cid"]))
-            data = tree.read_bytes(0, tree.total_count)
-            dev = (mesh if mesh is not None
-                   else leaf.device if isinstance(leaf, torch.Tensor)
-                   else torch.device("cpu"))
-            out.append(_tensor_of(data, meta, dev))
+            if meta["dtype"] not in _DTYPES:
+                raise ConfigError(f"checkpoint dtype {meta['dtype']!r} is "
+                                  f"not supported")
+            out.append(meta)
+        return out
+
+    def _read_leaf(self, meta: dict, device) -> torch.Tensor:
+        tree = POSTree.from_root(self.db.store, ck.BLOB,
+                                 bytes.fromhex(meta["cid"]))
+        return _tensor_of(tree.read_bytes(0, tree.total_count), meta, device)
+
+    def _restore_ranks(self, like, branch, uid, mesh, specs):
+        """``restore`` on a mesh of ranks: rank 0 reads the manifest, and
+        every rank learns each leaf's shape and dtype from it (or the
+        error rank 0 met, which every rank then raises); then rank 0 reads
+        one leaf at a time and sends each rank its block."""
+        import torch.distributed as dist
+        leaf_specs = _spec_leaves(like, specs)
+        src = mesh.device_mesh.get_rank() == 0
+        metas, head = [], [None]
+        if src:
+            try:
+                metas = self._leaf_metas(like, branch, uid)
+                head[0] = [(m["shape"], _DTYPES[m["dtype"]]) for m in metas]
+            except (CheckpointMissing, TensorMissing, ConfigError) as e:
+                head[0] = e
+        dist.broadcast_object_list(head, src=0)
+        if isinstance(head[0], Exception):
+            raise head[0]
+        out = []
+        for i, ((shape, dtype), sp) in enumerate(zip(head[0], leaf_specs)):
+            # no reference kept here: the leaf is freed once it is cut
+            out.append(mesh.place_from_root(
+                self._read_leaf(metas[i], mesh.device) if src else None,
+                shape, dtype, sp))
         return _unflatten(like, iter(out))
 
     # ------------------------------------------------------------ meta

@@ -187,11 +187,70 @@ def repeat_kv(k, groups: int):
 
 def _write_rows(cache, rows, pos):
     """``cache`` (B, T, ...) with row pos[b] of batch b replaced by
-    rows[b, 0] (functional: the input cache is not changed)."""
+    rows[b, 0] (functional: the input cache is not changed).  A cache
+    sharded over ranks takes a masked local write: each rank writes the
+    rows whose position falls in its slice of T."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(cache, DTensor):
+        return _write_rows_sharded(cache, rows, pos)
     out = cache.clone()
     out[torch.arange(cache.shape[0], device=cache.device), pos] = \
         rows[:, 0].to(cache.dtype)
     return out
+
+
+def _pad(x, pad):
+    """``F.pad(x, pad)`` with zeros.  A ``DTensor`` whose padded dims are
+    whole on every rank is padded on each rank's shard (the same result;
+    torch 2.11's DTensor cannot redistribute for ``pad``)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        padded = {x.dim() - 1 - i // 2 for i in range(len(pad)) if pad[i]}
+        if not any(p.is_shard() and p.dim in padded for p in x.placements):
+            return DTensor.from_local(F.pad(x.to_local(), pad),
+                                      x.device_mesh, x.placements,
+                                      run_check=False)
+    return F.pad(x, pad)
+
+
+def _write_rows_sharded(cache, rows, pos):
+    """``_write_rows`` on a ``DTensor`` cache: the new rows and positions
+    are brought to the cache's placements with T whole (small: one row a
+    batch entry), and each rank writes into its local slice of T the rows
+    that fall in it (GSPMD's masked local write)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, pl = cache.device_mesh, cache.placements
+    whole_t = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+               for p in pl]
+    rows = _placed_like(rows, mesh, whole_t).to_local()
+    pos = _placed_like(pos, mesh, [p if isinstance(p, Shard) and p.dim == 0
+                                   else Replicate() for p in pl]).to_local()
+    local = cache.to_local().clone()
+    Tl = local.shape[1]
+    off = 0
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == 1:
+            off = off * mesh.size(i) + mesh.get_local_rank(i)
+    off *= Tl
+    lp = pos.long() - off
+    inside = (lp >= 0) & (lp < Tl)
+    b = torch.arange(local.shape[0], device=local.device)
+    lp = torch.clamp(lp, 0, Tl - 1)
+    keep = local[b, lp]
+    new = rows[:, 0].to(local.dtype)
+    mask = inside.reshape((-1,) + (1,) * (new.dim() - 1))
+    local[b, lp] = torch.where(mask, new, keep)
+    return DTensor.from_local(local, mesh, pl, run_check=False)
+
+
+def _placed_like(x, mesh, placements):
+    """``x`` as a ``DTensor`` of ``placements`` on ``mesh`` (a plain
+    tensor is taken as replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return x.redistribute(mesh, placements)
 
 
 def check_positions(pos, T: int) -> None:
@@ -200,6 +259,9 @@ def check_positions(pos, T: int) -> None:
     no positions to check."""
     if pos.is_meta:
         return
+    from torch.distributed.tensor import DTensor
+    if isinstance(pos, DTensor):
+        pos = pos.full_tensor()
     lo, hi = torch.stack([pos.min(), pos.max()]).tolist()
     if lo < 0 or hi >= T:
         raise ConfigError(f"decode position {hi if hi >= T else lo} outside "
@@ -249,23 +311,14 @@ def attention_block(p, x, cfg, shd, pos=None, cache=None):
             new_cache = {"k": ck, "v": cv}
         kf = shd.constrain(kf, "batch", "cache_seq", None, None)
         vf = shd.constrain(vf, "batch", "cache_seq", None, None)
-        T = kf.shape[1]
-        qf = q.reshape(B, KV, G, dh).float()
-        s = torch.einsum("bkgd,btkd->bkgt", qf, kf)
-        s = s / math.sqrt(dh)
-        mask = (torch.arange(T, device=x.device)[None, :]
-                <= pos[:, None])                    # (B, T)
-        s = s.masked_fill(~mask[:, None, None, :], -math.inf)
-        w = torch.softmax(s.float(), dim=-1)
-        o = torch.einsum("bkgt,btkd->bkgd", w, vf)
-        o = o.reshape(B, 1, Hp, dh).to(x.dtype)
+        o = _decode_attention(q, kf, vf, pos, shd).to(x.dtype)
     else:                                            # ---- train / prefill
         q = shd.constrain(q, "batch", "seq", "heads", None)
         kf = repeat_kv(k, G)
         vf = repeat_kv(v, G)
         kf = shd.constrain(kf, "batch", "seq", "heads", None)
         vf = shd.constrain(vf, "batch", "seq", "heads", None)
-        o = flash_attention(q, kf, vf, causal=True)
+        o = _attention(q, kf, vf, shd)
         o = shd.constrain(o, "batch", "seq", "heads", None)
         if cache is not None:                        # prefill fills cache
             T = cache["k"].shape[1]
@@ -277,15 +330,62 @@ def attention_block(p, x, cfg, shd, pos=None, cache=None):
                 kq, ksc = quantize_kv(k)
                 vq, vsc = quantize_kv(v)
                 pad3 = pad[2:]
-                new_cache = {"k": F.pad(kq, pad), "v": F.pad(vq, pad),
-                             "ks": F.pad(ksc, pad3),
-                             "vs": F.pad(vsc, pad3)}
+                new_cache = {"k": _pad(kq, pad), "v": _pad(vq, pad),
+                             "ks": _pad(ksc, pad3),
+                             "vs": _pad(vsc, pad3)}
             else:
-                new_cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+                new_cache = {"k": _pad(k, pad), "v": _pad(v, pad)}
         else:
             new_cache = None
     out = torch.einsum("bsh,hd->bsd", o.reshape(B, S, Hp * dh), p["wo"])
     return out, new_cache
+
+
+def _attention(q, k, v, shd):
+    """Causal ``flash_attention``; on a mesh of ranks on each rank's shard
+    of (batch, heads), which attention keeps apart."""
+    if not shd.spmd:
+        return flash_attention(q, k, v, causal=True)
+    spec = shd.spec("batch", "seq", "heads", None)
+    return shd.leave(flash_attention(shd.enter(q, spec), shd.enter(k, spec),
+                                     shd.enter(v, spec), causal=True), spec)
+
+
+def _decode_attention(q, kf, vf, pos, shd):
+    """The decode step's attention: the query (all heads) scored against
+    the cache rows up to ``pos``, softmax, weighted values.  On a mesh of
+    ranks GSPMD's form for a cache sharded on its sequence: each rank
+    scores against its rows of the cache, and the softmax's max and sum
+    and the weighted values are reduced over the cache_seq axis.  q (B, 1,
+    Hp, dh); kf, vf (B, T, KV, dh) float32; returns (B, 1, Hp, dh)
+    float32."""
+    mesh = shd.mesh if shd.spmd else None
+    axis = None
+    if mesh is not None:
+        batch, axis = shd.rules["batch"], shd.rules["cache_seq"]
+        q = shd.enter(q, (batch, None, None, None))
+        kf = shd.enter(kf, (batch, axis, None, None))
+        vf = shd.enter(vf, (batch, axis, None, None))
+        pos = shd.enter(pos, (batch,))
+    B, Tl, KV, dh = kf.shape
+    G = q.shape[2] // KV
+    off = mesh.index(axis) * Tl if axis else 0
+    s = torch.einsum("bkgd,btkd->bkgt", q.reshape(B, KV, G, dh).float(), kf)
+    s = s / math.sqrt(dh)
+    mask = (off + torch.arange(Tl, device=kf.device))[None, :] \
+        <= pos[:, None]                               # (B, T)
+    s = s.masked_fill(~mask[:, None, None, :], -math.inf)
+    m = s.amax(dim=-1)
+    if axis:
+        m = mesh.pmax(m, axis)
+    e = torch.exp(s - m[..., None])
+    denom = e.sum(dim=-1)
+    o = torch.einsum("bkgt,btkd->bkgd", e, vf)
+    if axis:
+        denom, o = mesh.psum(denom, axis), mesh.psum(o, axis)
+    o = (o / denom[..., None]).reshape(B, 1, KV * G, dh)
+    return shd.leave(o, (batch, None, None, None)) if mesh is not None \
+        else o
 
 
 def mlp_block(p, x, cfg, shd):

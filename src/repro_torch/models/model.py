@@ -19,6 +19,13 @@ leaf for leaf onto the other's (``params_from_numpy`` /
 forward runs under ``torch.utils.checkpoint`` (activations recomputed in
 the backward pass; values unchanged).
 
+On a mesh of ranks (``Sharding.spmd``) the params, batch and caches are
+``DTensor``s placed by the shardings' specs (``init_params(shd=...)``,
+``init_cache(shd=...)``), the entry points run inside ``shd.region()``, and
+the loss is vocab-parallel (``lm_loss``): each rank holds a slice of the
+vocab, and the max, the sum of exponentials and the gold logit are reduced
+across the 'model' axis.
+
 Modality frontends are stubs per the assignment: internvl2 consumes
 precomputed patch embeddings through a linear connector; musicgen consumes
 the EnCodec token stream directly (single-codebook stand-in).
@@ -32,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..errors import ConfigError
 from ..kernels import ops
+from ..mesh import replicating
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
@@ -87,7 +95,20 @@ def _run(cfg, fn, *args):
     """``fn(*args)``, under activation checkpointing while autograd records
     a training forward with ``cfg.remat``."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(_replayed, fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _replayed(fn, *args):
+    """``fn(*args)``; with ``DTensor``s among the args (a mesh of ranks)
+    inside ``replicating()``, which the recomputation in the backward pass
+    does not inherit from the forward's region."""
+    from torch.distributed.tensor import DTensor
+    found = []
+    tree_map(lambda a: found.append(isinstance(a, DTensor)), args)
+    if any(found):
+        with replicating():
+            return fn(*args)
     return fn(*args)
 
 
@@ -112,12 +133,21 @@ def _init_tx_layer(gen, cfg, shards):
     return p
 
 
-def init_params(cfg, gen: torch.Generator, shards: int = 16, device=None):
+def init_params(cfg, gen: torch.Generator, shards: int = 16, device=None,
+                shd=None):
     """Random params of ``cfg`` with the reference's tree, shapes and
     dtypes, drawn by ``gen`` on its device and placed on ``device``
     (default: the engine's device, ``kernels.ops.device()``).  On the meta
     device (a dry run, the counterpart of ``jax.eval_shape``) nothing is
-    drawn or allocated."""
+    drawn or allocated.  With ``shd`` on a mesh of ranks, rank 0 draws and
+    every rank keeps only its shards of each leaf (``shd.param_specs``),
+    the values of the one-device draw."""
+    if shd is not None and shd.spmd:
+        mesh = shd.mesh
+        src = mesh.device_mesh.get_rank() == 0
+        whole = init_params(cfg, gen, shards,
+                            device=mesh.device if src else "meta")
+        return mesh.place_tree(whole, shd.param_specs(whole))
     device = ops.ready_device() if device is None else torch.device(device)
     if device.type == "meta":
         gen = MetaDraws()
@@ -248,33 +278,115 @@ def backbone(params, x, cfg, shd):
 
 # ==================================================================== loss
 
-def lm_loss(params, x, labels, cfg, shd, chunk: int = 512):
-    """Chunked cross-entropy: logits materialize only for `chunk` positions
-    at a time (padded vocab masked with -1e9).  As in the reference, the
-    gold logit is read from the logits rounded to bfloat16."""
-    B, S, d = x.shape
-    V = params["unembed"].shape[1]
+def _chunk_of(S: int, chunk: int) -> int:
     chunk = min(chunk, S)
     while S % chunk:           # largest chunk <= requested that divides S
         chunk -= 1
-    pad_mask = (torch.arange(V, device=x.device) >= cfg.vocab) * (-1e9)
+    return chunk
+
+
+def lm_loss(params, x, labels, cfg, shd, chunk: int = 512):
+    """Chunked cross-entropy: logits materialize only for `chunk` positions
+    at a time (padded vocab masked with -1e9).  As in the reference, the
+    gold logit is read from the logits rounded to bfloat16.  On a mesh of
+    ranks the vocab-parallel form (``_lm_loss_spmd``); both run
+    ``_lm_mean_local``."""
+    if shd.spmd:
+        return _lm_loss_spmd(params, x, labels, cfg, shd, chunk)
+    return _lm_mean_local(x, labels, params["unembed"], cfg, shd, chunk)
+
+
+def _lm_loss_spmd(params, x, labels, cfg, shd, chunk: int):
+    """``lm_loss`` on each rank's shards, as a ``shard_map`` body: the
+    rank's batch rows (the batch axes) against its slice of the vocab
+    (the 'vocab' axis)."""
+    batch, vocab = shd.rules["batch"], shd.rules["vocab"]
+    return shd.leave(_lm_mean_local(
+        shd.enter(x, (batch, None, None)), shd.enter(labels, (batch, None)),
+        shd.enter(params["unembed"], (None, vocab)), cfg, shd, chunk), ())
+
+
+def _lm_mean_local(x_l, lab, u_l, cfg, shd, chunk: int = 512):
+    """The mean cross-entropy over the whole batch from each rank's rows
+    ``x_l``, labels ``lab`` and vocab slice ``u_l``.  The row max and the
+    sum of exponentials are reduced over the vocab axis, and the gold
+    logit is a masked gather from the local slice (its bfloat16 rounding,
+    as the reference reads it), summed over the vocab axis; the token sums
+    are summed over the batch axes.  Off a mesh of ranks the slice is the
+    whole vocab and nothing is reduced."""
+    mesh = shd.mesh if shd.spmd else None
+    vocab = shd.rules["vocab"] if mesh is not None else None
+    Vl = u_l.shape[1]
+    off = mesh.index(vocab) * Vl if vocab else 0
+    pad_mask = ((off + torch.arange(Vl, device=x_l.device)) >= cfg.vocab) \
+        * (-1e9)
+    S = x_l.shape[1]
+    chunk = _chunk_of(S, chunk)
     nll = cnt = 0.0
     for ci in range(S // chunk):
-        xc = x[:, ci * chunk:(ci + 1) * chunk]
-        lc = labels[:, ci * chunk:(ci + 1) * chunk]
-        logits = torch.einsum("bsd,dv->bsv", xc, params["unembed"]).float()
-        logits = logits + pad_mask
-        logits = shd.constrain(logits, "batch", "seq", "vocab")
-        logz = torch.logsumexp(logits, dim=-1)
+        xc = x_l[:, ci * chunk:(ci + 1) * chunk]
+        lc = lab[:, ci * chunk:(ci + 1) * chunk]
+        logits = torch.einsum("bsd,dv->bsv", xc, u_l).float() + pad_mask
+        m = logits.detach().amax(dim=-1)
+        if vocab:
+            m = mesh.pmax(m, vocab)
+        se = torch.exp(logits - m[..., None]).sum(dim=-1)
+        logz = torch.log(mesh.psum(se, vocab) if vocab else se) + m
+        idx = lc.long() - off
+        inside = (idx >= 0) & (idx < Vl)
         gold = logits.to(torch.bfloat16).gather(
-            -1, torch.clamp(lc, 0, V - 1).long()[..., None])[..., 0].float()
+            -1, torch.clamp(idx, 0, Vl - 1)[..., None])[..., 0].float()
+        gold = gold * inside
+        if vocab:
+            gold = mesh.psum(gold, vocab)
         valid = (lc >= 0).float()
         nll = nll + torch.sum((logz - gold) * valid)
         cnt = cnt + torch.sum(valid)
+    for a in (shd.batch_axes() if mesh is not None else ()):
+        nll, cnt = mesh.psum(nll, a), mesh.psum(cnt, a)
     return nll / torch.clamp(cnt, min=1.0)
 
 
+def _local_sharding(shd):
+    """The mesh-less ``Sharding`` each rank runs a data-parallel body
+    under."""
+    return type(shd)(None, shd.cfg)
+
+
+def _enter_params(params, shd):
+    return shd.enter_tree(params, shd.param_specs(params))
+
+
+def _enter_batch(batch, shd):
+    return {k: shd.enter(v, shd.spec("batch", *([None] * (v.ndim - 1))))
+            for k, v in batch.items()}
+
+
 def train_loss(params, batch, cfg, shd):
+    with shd.region():
+        if shd.data_parallel:
+            return _train_loss_dp(params, batch, cfg, shd)
+        return _train_loss(params, batch, cfg, shd)
+
+
+def _train_loss_dp(params, batch, cfg, shd):
+    """``train_loss`` where no param is sharded (``shd.data_parallel``):
+    each rank runs the one-device model on its rows; the loss is the mean
+    over every rank's tokens."""
+    p = _enter_params(params, shd)
+    b = _enter_batch(batch, shd)
+    one = _local_sharding(shd)
+    h, (lb, z) = backbone(p, embed_inputs(p, b, cfg, one), cfg, one)
+    if cfg.frontend == "vision":
+        h = h[:, -b["labels"].shape[1]:]
+    loss = shd.leave(_lm_mean_local(h, b["labels"], p["unembed"], cfg, shd),
+                     ())
+    lb, z = (shd.leave(shd.mesh.pmean(a, shd.batch_axes()), ())
+             if isinstance(a, torch.Tensor) else a for a in (lb, z))
+    return loss + 0.01 * lb + 1e-3 * z, {"ce": loss, "lb": lb, "z": z}
+
+
+def _train_loss(params, batch, cfg, shd):
     x = embed_inputs(params, batch, cfg, shd)
     h, (lb, z) = backbone(params, x, cfg, shd)
     h = shd.constrain(h, "batch", "seq", None)   # regather seq for loss
@@ -286,8 +398,14 @@ def train_loss(params, batch, cfg, shd):
 
 # ================================================================= serving
 
-def init_cache(cfg, B: int, T: int, dtype=torch.bfloat16, device=None):
-    """Decode cache tree on ``device`` (default: the engine's device)."""
+def init_cache(cfg, B: int, T: int, dtype=torch.bfloat16, device=None,
+               shd=None):
+    """Decode cache tree on ``device`` (default: the engine's device); with
+    ``shd`` on a mesh of ranks, each rank's shards of it
+    (``shd.cache_specs``)."""
+    if shd is not None and shd.spmd:
+        whole = init_cache(cfg, B, T, dtype, device=shd.mesh.device)
+        return shd.mesh.place_tree(whole, shd.cache_specs(whole))
     device = ops.ready_device() if device is None else torch.device(device)
     KV, dh, L = cfg.n_kv_heads, cfg.dh, cfg.n_layers
 
@@ -336,6 +454,18 @@ def decode_step(params, cache, batch, cfg, shd):
     """One-token decode against a T-long cache.  batch: tokens (B,1),
     pos (B,).  Returns (new_cache, logits (B, V)); the input cache is not
     changed.  A position outside [0, T) raises ConfigError."""
+    with shd.region():
+        if shd.data_parallel:
+            new, logits = _decode_step(
+                _enter_params(params, shd),
+                shd.enter_tree(cache, shd.cache_specs(cache)),
+                _enter_batch(batch, shd), cfg, _local_sharding(shd))
+            return (shd.leave_tree(new, shd.cache_specs(new)),
+                    shd.leave(logits, shd.spec("batch", None)))
+        return _decode_step(params, cache, batch, cfg, shd)
+
+
+def _decode_step(params, cache, batch, cfg, shd):
     tok, pos = batch["tokens"], batch["pos"]
     T = _cache_len(cache)
     if T is not None:
@@ -427,7 +557,22 @@ def decode_step(params, cache, batch, cfg, shd):
 def prefill(params, batch, cfg, shd, cache_len: int | None = None):
     """Process a full prompt, filling a decode cache of ``cache_len`` rows
     (default: the prompt's length); returns (cache, last-position
-    logits)."""
+    logits).  On a mesh of ranks the cache is placed by
+    ``shd.cache_specs``, as ``decode_step`` reads it."""
+    with shd.region():
+        if shd.data_parallel:
+            cache, logits = _prefill(
+                _enter_params(params, shd), _enter_batch(batch, shd), cfg,
+                _local_sharding(shd), cache_len)
+            return (shd.leave_tree(cache, shd.cache_specs(cache)),
+                    shd.leave(logits, shd.spec("batch", None)))
+        cache, logits = _prefill(params, batch, cfg, shd, cache_len)
+        if shd.spmd:
+            cache = shd.constrain_tree(cache, shd.cache_specs(cache))
+        return cache, logits
+
+
+def _prefill(params, batch, cfg, shd, cache_len):
     tok = batch["tokens"]
     B = tok.shape[0]
     x = embed_inputs(params, batch, cfg, shd)

@@ -7,10 +7,11 @@ Two dispatch implementations (cfg.moe_impl):
     (zero dispatch-matmul FLOPs), expert GEMMs over the buffers, and a
     scatter-add combine.  Without a mesh every expert is local
     (``e_start=0``, ``e_local=n_experts``, no combine across devices); with
-    a mesh the body runs through ``shardings.Sharding.moe_shard_map``, on
-    one card only while the axes it shards over have size 1.  Shapes stay
-    static (no data-dependent sizes), so the body also runs on the meta
-    device in a dry run.
+    a mesh the body runs through ``shardings.Sharding.moe_shard_map`` on
+    each rank's tokens and experts, and the combine sums over 'model'.
+    Capacity is counted per DP shard.  Shapes stay static (no
+    data-dependent sizes), so the body also runs on the meta device in a
+    dry run.
 
   * 'onehot' — classic capacity one-hot einsum dispatch (Mesh-TF/GShard
     style), kept as the reference/baseline; its dispatch einsums burn
@@ -67,12 +68,13 @@ def _expert_ffn(h_in, w_in, w_gate, w_out, act: str):
     return torch.einsum("ecf,efd->ecd", h, w_out)
 
 
-def moe_gather_local(x, p, cfg, *, e_start, e_local, capacity, axis_name):
-    """Local body: x (T, d) are the tokens; this call computes experts
-    e_start .. e_start + e_local - 1.  ``axis_name`` names the mesh axis
-    whose shards sum the combine (None without a mesh).  The port runs the
-    body only where that axis has size 1 (``Sharding.moe_shard_map``
-    checks), so the sum over it is the identity.
+def moe_gather_local(x, p, cfg, *, e_start, e_local, capacity, axis_name,
+                     mesh=None):
+    """Local body: x (T, d) are this data shard's tokens, the same on every
+    rank of ``axis_name``; this call computes experts e_start .. e_start +
+    e_local - 1.  ``axis_name`` names the mesh axis whose shards sum the
+    combine (None without a mesh); on a mesh of ranks (``mesh``) the sum
+    is an all-reduce over it, on one card the identity.
 
     For each local expert slot (e, c) it computes which *sorted routed
     token* fills it (slot-inverse indexing) and gathers exactly
@@ -105,6 +107,8 @@ def moe_gather_local(x, p, cfg, *, e_start, e_local, capacity, axis_name):
     contrib = y * gate[..., None].to(x.dtype)
     out = torch.zeros((T, d), dtype=x.dtype, device=dev).index_add(
         0, tok.reshape(-1), contrib.reshape(-1, d))
+    if axis_name and mesh is not None:
+        out = mesh.psum(out, axis_name)                   # combine over EP
     lb, z = aux_losses(probs, top_i, E)
     return out, lb, z
 

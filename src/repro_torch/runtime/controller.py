@@ -10,7 +10,7 @@
     of the same run, the UB-table holds every head; the controller
     resolves by data progress and continues on the merged head;
   * elastic restarts: the checkpoint is placement-agnostic; ``remesh``
-    restores onto whatever device survives.
+    restores onto whatever devices survive, sharded by the new mesh.
 
 Batches land on the engine's device (``kernels.ops.device()``: the card
 unless the caller selected the CPU).
@@ -114,9 +114,11 @@ class TrainController:
     # ------------------------------------------------ elastic / forking
     def remesh(self, mesh, specs):
         """Elastic restart: reload the current branch head onto a new
-        placement (``mesh`` a ``torch.device`` or a one-card
-        ``repro_torch.mesh.Mesh``; ``specs`` that shard over an axis of
-        size > 1 raise ``ConfigError``, see ``CheckpointStore.restore``)."""
+        placement (``mesh`` a ``torch.device`` or a
+        ``repro_torch.mesh.Mesh``, the state placed by ``specs``; on a mesh
+        of ranks rank 0's store is read, see ``CheckpointStore.restore``).
+        The new mesh need not have the writer's shape: (2, 2) -> (1, 2)
+        is a restart on half the devices."""
         self.state = self.ckpt.restore(self.state, self.branch, mesh=mesh,
                                        specs=specs)
         return self.state

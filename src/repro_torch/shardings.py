@@ -18,17 +18,29 @@ A spec is a tuple of mesh axis names (None for a replicated dim, a tuple of
 names for a dim over several axes), the counterpart of a ``PartitionSpec``.
 The rules come from ``mesh.axis_names`` and ``mesh.shape`` alone, so a mesh
 that binds no device (``make_production_mesh``) gives the production specs.
-Execution stays on one card: ``constrain`` is the identity (the card holds
-each tensor whole), and ``moe_shard_map`` runs its body when every axis it
-shards over has size 1; an axis of size > 1 raises ``ConfigError`` (the
-multi-card port).  ``Sharding(None, cfg)`` has no mesh, tensor-parallel
-degree 1, data-parallel size 1 and no rules, as in the reference.
+
+On a mesh of ranks (``Mesh.spmd``) the model runs on ``DTensor``s:
+``constrain`` moves a tensor to a spec's placements (the counterpart of
+``with_sharding_constraint``), and ``region`` lets the
+plain tensors made inside the model (masks, positions, RoPE tables) join
+``DTensor`` arithmetic as replicated values.  ``moe_shard_map`` and the
+vocab-parallel loss run their bodies on each rank's local shards, as the
+reference's ``shard_map`` does (``enter`` / ``leave``), with the
+collectives spelled out.  On one card ``constrain`` is the identity and
+``moe_shard_map`` runs its body whole; there an axis of size > 1 raises
+``ConfigError`` (a mesh of ranks is needed).  ``Sharding(None, cfg)`` has
+no mesh, tensor-parallel degree 1, data-parallel size 1 and no rules, as
+in the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
-from .errors import ConfigError
+import torch
+
+from .errors import ConfigError, InvariantViolation
+from .mesh import map_specs, replicating, spec_axes
 from .models.layers import padded_heads
 
 
@@ -126,9 +138,90 @@ class Sharding:
         return P(*[self.rules.get(n, None) if isinstance(n, str) else n
                    for n in names])
 
+    @property
+    def spmd(self) -> bool:
+        """True on a mesh of ranks: the model runs on ``DTensor``s."""
+        return self.mesh is not None and getattr(self.mesh, "spmd", False)
+
     def constrain(self, x, *names):
-        """The identity: one card holds each tensor whole."""
-        return x
+        """``x`` moved to the placements of ``spec(*names)`` on a mesh of
+        ranks (``with_sharding_constraint``); the identity without one (one
+        card holds each tensor whole)."""
+        if not self.spmd:
+            return x
+        from torch.distributed.tensor import DTensor
+        if not isinstance(x, DTensor):
+            raise InvariantViolation(f"constrain{names} of a plain tensor on "
+                                     f"{self.mesh}: the model runs on "
+                                     f"DTensors there")
+        return x.redistribute(self.mesh.device_mesh,
+                              self.mesh.placements(self.spec(*names)))
+
+    def constrain_tree(self, tree, specs):
+        """``constrain`` of every leaf of ``tree`` to the spec at its path
+        in ``specs`` (a tree of specs, as ``cache_specs`` gives); a dim
+        that its axes do not divide raises ConfigError, as placing the
+        tree would in the reference."""
+        if not self.spmd:
+            return tree
+        return map_specs(tree, specs, lambda x, sp: x.redistribute(
+            self.mesh.device_mesh, self.mesh.placements(sp, x.shape)))
+
+    def region(self):
+        """The context the model runs in: on a mesh of ranks, plain tensors
+        made inside it join ``DTensor`` arithmetic as replicated values
+        (``implicit_replication``); without one, nothing."""
+        if not self.spmd:
+            return contextlib.nullcontext()
+        return replicating()
+
+    # ------------------------------------- shard_map boundaries (SPMD)
+    def enter(self, x, spec):
+        """The local shard of ``x`` (a ``DTensor``) placed as ``spec``, the
+        input side of ``shard_map``: its gradient is summed over the axes
+        that ``spec`` does not name (where every rank holds it whole)."""
+        from torch.distributed.tensor import Partial, Replicate
+        pl = self.mesh.placements(spec)
+        x = x.redistribute(self.mesh.device_mesh, pl)
+        grad = [Partial() if isinstance(p, Replicate) else p for p in pl]
+        return x.to_local(grad_placements=grad)
+
+    def leave(self, local: torch.Tensor, spec):
+        """A ``DTensor`` of ranks' ``local`` shards placed as ``spec``, the
+        output side of ``shard_map``: every rank holds the same value on
+        the axes that ``spec`` does not name, so its gradient there is
+        divided by their size (the psums inside sum it back)."""
+        from torch.distributed.tensor import DTensor, Replicate
+        pl = self.mesh.placements(spec)
+        n = math.prod(size for p, size in zip(pl, self.mesh.shape.values())
+                      if isinstance(p, Replicate))
+        if n > 1 and local.requires_grad:
+            local = _ScaleGrad.apply(local, 1.0 / n)
+        return DTensor.from_local(local, self.mesh.device_mesh, pl,
+                                  run_check=False)
+
+    def enter_tree(self, tree, specs):
+        """``enter`` on every leaf of ``tree`` with the spec at its path of
+        ``specs``."""
+        return map_specs(tree, specs, self.enter)
+
+    def leave_tree(self, tree, specs):
+        """``leave`` on every leaf of ``tree`` with the spec at its path of
+        ``specs``."""
+        return map_specs(tree, specs, self.leave)
+
+    @property
+    def data_parallel(self) -> bool:
+        """True on a mesh of ranks whose batch covers every mesh axis
+        (xlstm's batch over ('data', 'model')): no param is sharded, so
+        each rank runs the one-device model on its own rows."""
+        return self.spmd and self.batch_uses_model and \
+            set(self.batch_axes()) >= {a for a, n in self.mesh.shape.items()
+                                       if n > 1}
+
+    def batch_axes(self) -> list[str]:
+        """The mesh axes the batch dim shards over."""
+        return spec_axes((self.rules.get("batch"),))
 
     # ---------------- parameter specs ----------------
     def _leaf_spec(self, path: str, leaf) -> tuple:
@@ -223,24 +316,63 @@ class Sharding:
     # ---------------- MoE expert parallelism ----------------
     def moe_shard_map(self, local_fn, xt, p):
         """The gather-EP MoE body for each (dp shard, model shard) of the
-        mesh, the reference's ``shard_map``.  The port runs it on one
-        card: every axis it shards over (the batch axes, 'model' for the
-        experts and the combine, 'data' for FSDP) must have size 1.  Then
-        the one shard holds every token and expert (``e_start`` 0,
-        ``e_local`` E), and FSDP's all-gather, the combine's sum over
-        'model' and the DP means of the aux losses are identities.  An
-        axis of size > 1 raises ConfigError."""
-        axes = {"model", *(self.rules["batch"] or ()),
-                *((self.rules["fsdp"],) if self.rules["fsdp"] else ())}
-        wide = sorted(a for a in axes if self.mesh.shape.get(a, 1) > 1)
-        if wide:
-            raise ConfigError(f"the expert-parallel MoE over mesh axes "
-                              f"{wide} of size > 1 runs across cards: that "
-                              f"is the multi-card port")
+        mesh, the reference's ``shard_map``: each rank's tokens are its dp
+        shard (replicated over 'model'), its experts are
+        ``e_start = model_rank * e_local`` on, FSDP's expert weights are
+        all-gathered over 'data' on dim 1, the body sums the combine over
+        'model', and the aux losses are averaged over the DP axes.  On one
+        card the one shard holds every token and expert (``e_start`` 0,
+        ``e_local`` E) and the collectives are identities; an axis of size
+        > 1 that is not a mesh of ranks raises ConfigError."""
+        E = self.cfg.n_experts
         routed = {k: p[k] for k in ("router", "w_in", "w_gate", "w_out")
                   if k in p}
-        return local_fn(xt, routed, e_start=0, e_local=self.cfg.n_experts,
-                        axis_name="model")
+        if not self.spmd:
+            axes = {"model", *self.batch_axes(),
+                    *((self.rules["fsdp"],) if self.rules["fsdp"] else ())}
+            wide = sorted(a for a in axes if self.mesh.shape.get(a, 1) > 1)
+            if wide:
+                raise ConfigError(f"the expert-parallel MoE over mesh axes "
+                                  f"{wide} of size > 1 runs on a mesh of "
+                                  f"ranks (the multi-card port: "
+                                  f"init_distributed, make_mesh_for)")
+            return local_fn(xt, routed, e_start=0, e_local=E,
+                            axis_name="model")
+        mesh = self.mesh
+        e_local = E // self.tp
+        dp = self.rules["batch"]
+        fsdp = self.rules["fsdp"]
+        pspec = {"router": P(None, None),
+                 "w_in": P(self.rules["experts"], fsdp, None),
+                 "w_gate": P(self.rules["experts"], fsdp, None),
+                 "w_out": P(self.rules["experts"], fsdp, None)}
+        x_l = self.enter(xt, P(dp, None))
+        p_l = {k: self.enter(v, pspec[k]) for k, v in routed.items()}
+        if fsdp:   # ZeRO-3: re-assemble expert weights for the GEMMs
+            for k in ("w_in", "w_gate", "w_out"):
+                if k in p_l:
+                    p_l[k] = mesh.all_gather(p_l[k], fsdp, dim=1)
+        out, lb, z = local_fn(x_l, p_l, e_start=mesh.index("model") * e_local,
+                              e_local=e_local, axis_name="model",
+                              mesh=mesh)
+        if self.dp_axes:
+            lb = mesh.pmean(lb, self.dp_axes)
+            z = mesh.pmean(z, self.dp_axes)
+        return self.leave(out, P(dp, None)), self.leave(lb, P()), \
+            self.leave(z, P())
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, with its gradient scaled by ``s``."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
 
 
 def make_sharding(mesh, cfg, global_batch=None) -> Sharding:

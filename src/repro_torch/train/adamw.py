@@ -55,28 +55,41 @@ def schedule(opt: AdamWConfig, step) -> torch.Tensor:
 
 def init_opt_state(params, moment_dtype: str = "f32") -> dict:
     """Zero moments in ``moment_dtype`` and a float32 master copy of every
-    leaf (a copy even where the leaf is float32 already), on each leaf's
-    device."""
+    leaf (a copy even where the leaf is float32 already), each placed as
+    its leaf is (same device, or the same ``DTensor`` placements); the
+    step count is replicated."""
     mdt = torch.bfloat16 if moment_dtype == "bf16" else torch.float32
     leaves = _leaves(params)
     dev = leaves[0].device if leaves else None
 
     def zeros():
         return _unflatten(params, iter(
-            [torch.zeros(p.shape, dtype=mdt, device=p.device)
-             for p in leaves]))
+            [torch.zeros_like(p, dtype=mdt) for p in leaves]))
     master = _unflatten(params, iter(
         [p.detach().to(torch.float32, copy=True) for p in leaves]))
-    return {"mu": zeros(), "nu": zeros(), "master": master,
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    if leaves and _is_dtensor(leaves[0]):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = leaves[0].device_mesh
+        step = DTensor.from_local(step, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    return {"mu": zeros(), "nu": zeros(), "master": master, "step": step}
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, the leaves
-    summed one after another in the reference's order."""
+    summed one after another in the reference's order.  A leaf sharded
+    over ranks sums its shards first (an all-reduce a leaf), so every
+    rank holds the same norm, a plain tensor."""
     total = 0
     for leaf in _leaves(tree):
-        total = total + torch.sum(leaf.to(torch.float32) ** 2)
+        sq = torch.sum(leaf.to(torch.float32) ** 2)
+        total = total + (sq.full_tensor() if _is_dtensor(sq) else sq)
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 

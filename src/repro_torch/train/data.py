@@ -7,8 +7,8 @@ byte.  ``prefetch`` overlaps host generation with device steps: a
 background thread fills a bounded queue with batches staged in pinned host
 memory, and each batch is copied to the engine's device
 (``kernels.ops.ready_device()``) without blocking the host.
-``shard_batch`` places a host batch on the engine's device, or on the card
-of a one-card mesh.
+``shard_batch`` places a host batch on the engine's device, or on a mesh by
+the batch specs.
 """
 from __future__ import annotations
 
@@ -123,9 +123,9 @@ class Prefetcher:
 
 def shard_batch(batch: dict, mesh=None, shd=None) -> dict:
     """Host numpy batch -> tensors on the engine's device, or, with a
-    ``repro_torch.mesh.Mesh`` and its ``Sharding``, on the mesh's card: each
-    input's spec shards dim 0 over the batch axes, which must all have
-    size 1 (else ConfigError: the multi-card port)."""
+    ``repro_torch.mesh.Mesh`` and its ``Sharding``, placed by each input's
+    spec (dim 0 over the batch axes, ``Mesh.place``): ``DTensor``s on a
+    mesh of ranks, whole tensors on a one-device mesh."""
     if mesh is None:
         dev = ops.ready_device()
         return {k: torch.as_tensor(np.asarray(v)).to(dev)
@@ -136,6 +136,6 @@ def shard_batch(batch: dict, mesh=None, shd=None) -> dict:
     out = {}
     for k, v in batch.items():
         v = np.asarray(v)
-        dev = mesh.device_for(shd.spec("batch", *([None] * (v.ndim - 1))))
-        out[k] = torch.as_tensor(v).to(dev)
+        out[k] = mesh.place(torch.as_tensor(v),
+                            shd.spec("batch", *([None] * (v.ndim - 1))))
     return out

@@ -8,6 +8,11 @@ on the state's device.  With ``microbatch > 1`` the gradients of the batch
 slices accumulate in ``grad_dtype`` (bfloat16 by default) and are divided
 by the count there, as the reference's ``lax.scan`` does.
 
+On a mesh of ranks the state and batch are ``DTensor``s: each gradient
+comes back in its param's placements (the data-parallel mean is the
+all-reduce of a replicated param's partial sums), and microbatches slice
+each rank's own rows.
+
 On the card, scaled_dot_product_attention's backward adds dq with atomics
 in no fixed order, so two runs of a step can differ in the last bits; a
 replay is bit-exact under ``runtime.deterministic()``, which the training
@@ -36,11 +41,12 @@ class TrainState:
 
 
 def init_train_state(cfg, gen: torch.Generator, shards: int = 16,
-                     device=None) -> dict:
+                     device=None, shd=None) -> dict:
     """Random params of ``cfg`` drawn by ``gen`` (``models.model.
-    init_params``) on ``device`` (default: the engine's device), with a
-    fresh optimizer state."""
-    params = model_mod.init_params(cfg, gen, shards, device=device)
+    init_params``) on ``device`` (default: the engine's device), or placed
+    by ``shd``'s param specs on a mesh of ranks, with a fresh optimizer
+    state placed as the params are."""
+    params = model_mod.init_params(cfg, gen, shards, device=device, shd=shd)
     return {"params": params,
             "opt": init_opt_state(params,
                                   getattr(cfg, "opt_moments", "f32"))}
@@ -76,15 +82,40 @@ def value_and_grad(params, batch, cfg, shd):
             raise ConfigError(f"param {name} has dtype {p.dtype}: the loss "
                               f"is differentiated by every param")
     leaves = [p.detach().requires_grad_() for _, p in named]
-    with torch.enable_grad():
+    with torch.enable_grad(), shd.region():
         loss, metrics = loss_fn(_unflatten(params, iter(leaves)), batch, cfg,
                                 shd)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _as_placed(g, p)
              for g, p in zip(grads, leaves)]
     loss = loss.detach()
     return (loss, {k: _metric(v, loss) for k, v in metrics.items()},
             _unflatten(params, iter(grads)))
+
+
+def _as_placed(g, p):
+    """A gradient in its param's placements.  On a mesh of ranks a
+    replicated param's gradient comes back as partial sums over the batch
+    axes; their all-reduce is the data-parallel mean (the loss is the mean
+    over the whole batch)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(p, DTensor):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _local_rows(x, i: int, n_slices: int):
+    """Slice i of n_slices of ``x``'s rows.  A ``DTensor`` is sliced on
+    each rank's own rows (the batch stays where it is; a microbatch holds
+    local rows i * n .. of every rank)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        local = x.to_local()
+        n = local.shape[0] // n_slices
+        return DTensor.from_local(local[i * n:(i + 1) * n], x.device_mesh,
+                                  x.placements, run_check=False)
+    n = x.shape[0] // n_slices
+    return x[i * n:(i + 1) * n]
 
 
 def make_train_step(cfg, shd, opt_cfg: AdamWConfig | None = None,
@@ -100,13 +131,10 @@ def make_train_step(cfg, shd, opt_cfg: AdamWConfig | None = None,
             loss, metrics, grads = value_and_grad(params, batch, cfg, shd)
         else:
             def mb_slice(i):
-                out = {}
-                for k, x in batch.items():
-                    n = x.shape[0] // microbatch
-                    out[k] = x[i * n:(i + 1) * n]
-                return out
+                return {k: _local_rows(x, i, microbatch)
+                        for k, x in batch.items()}
 
-            g_acc = [torch.zeros(p.shape, dtype=grad_dtype, device=p.device)
+            g_acc = [torch.zeros_like(p, dtype=grad_dtype)
                      for _, p in _leaf_paths(params)]
             loss_sum = 0.0
             for i in range(microbatch):
