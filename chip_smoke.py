@@ -18,9 +18,13 @@ Phases, in order; any failed check exits non-zero:
    of its 8192-byte tile and views of a stream at every offset 1..15 from
    its allocation's start; fphash_many takes chunks at
    every offset mod 16, chunks ending at the end of their buffer, batches
-   of one and an index level of 300,000 chunks of 1-200 B.  8 threads then
-   launch the single-string fphash kernel 500 times each at once, and the
-   launch counter must read exactly 4,000.
+   of one and an index level of 300,000 chunks of 1-200 B; the engine's
+   single-value route (ops.content_hash: the kernel reads the value from
+   pinned host memory and writes the digest back there) takes every fphash
+   length up to 1 MB + 3 and the golden inputs.  8 threads then hash 500
+   distinct values each through ops.content_hash at once: every digest
+   must equal the plain version's and the launch counter read exactly
+   4,000.
 3. The engine's main path at a real size: the paper's collaborative
    analytics dataset shape (5M records of 180 B on average: a 12 B key, two
    ints, variable text; ~0.9 GB, made from a numpy seed) put as one FBlob
@@ -234,6 +238,10 @@ N_GRID = (1, 47, 48, 255, 4991, 4992, 4993, 8191, 8192, 8193, 16_383,
           16_384, 16_385, 39936, 100_001)
 WQ_GRID = ((48, 12), (16, 8), (128, 10), (4, 4))
 FP_LENGTHS = (0, 1, 31, 4095, 4096, 4097, 12288, 32768, 32769, 65536)
+# the single-value route's lengths beyond FP_LENGTHS: a meta chunk, a 4 KB
+# leaf with its type byte, the largest chunk, one byte past the 9-block
+# stage (the ring's first wrap) and a long value
+HOST_LENGTHS = FP_LENGTHS + (63, 4097, 32_769, 36_865, (1 << 20) + 3)
 STREAM_BYTES = 64 << 20
 # integer operations per byte / per 4 KB block / per chunk, counted from
 # the algorithm (not from the kernels' instruction streams): the bitmap
@@ -314,13 +322,43 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
+def cid_tensor(cid: bytes) -> torch.Tensor:
+    """A 32-byte cid as the int32 (8,) digest the kernels return."""
+    return torch.frombuffer(bytearray(cid), dtype=torch.int32)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host wall time of one call of fn(), which returns only when
+    its result is on the host, over reps calls after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return float(np.median(times)) * 1e3
+
+
+def launch_floor_ms(dev, reps: int = 2000) -> float:
+    """The least a single call that launches and waits can take: one tiny
+    torch op on the card and a synchronisation of its stream, median of
+    reps."""
+    x = torch.zeros(1, device=dev)
+    stream = torch.cuda.current_stream(dev)
+
+    def call():
+        x.add_(1)
+        stream.synchronize()
+    return host_ms(call, reps)
+
+
 # ------------------------------------------------------------ phase 2
 
 def kernels_vs_plain(dev) -> dict[str, int]:
     """Every kernel against its plain version on ``dev`` and against the
     golden constants; returns the largest |kernel - plain| of each."""
     from repro_torch.core import rolling
-    from repro_torch.kernels import golden
+    from repro_torch.kernels import golden, ops
     from repro_torch.kernels import ref
     from repro_torch.kernels.chunker import boundary_bitmap
     from repro_torch.kernels.fphash import fphash, fphash_many
@@ -371,6 +409,26 @@ def kernels_vs_plain(dev) -> dict[str, int]:
     print(f"fphash: {len(FP_LENGTHS)} lengths identical to plain, "
           f"{len(golden.FPHASH)} golden")
 
+    # the engine's single-value route, from host bytes (and from a view at
+    # an odd offset of a larger host buffer)
+    for n in HOST_LENGTHS:
+        data = rng.bytes(n)
+        p = ref.fphash_ref(torch.frombuffer(bytearray(data) or bytearray(1),
+                                            dtype=torch.uint8)[:n].to(dev))
+        k = cid_tensor(ops.content_hash(data))
+        check(torch.equal(k, p.cpu()),
+              f"the single-value route differs from plain at n={n}")
+        err["fphash"] = max(err["fphash"], max_err(k, p.cpu()))
+        wide = b"\x07" * 7 + data + b"\x07" * 9
+        check(ops.content_hash(memoryview(wide)[7:7 + n]) ==
+              ops.content_hash(data),
+              f"the single-value route differs on a view at n={n}")
+    got = [ops.content_hash(b).hex() for b in golden.fphash_inputs()]
+    check(got == list(golden.FPHASH),
+          "the single-value route misses its golden values")
+    print(f"fphash (single-value route): {len(HOST_LENGTHS)} lengths "
+          f"identical to plain, {len(golden.FPHASH)} golden")
+
     def many_pair(data, offsets, lengths, what):
         offs = torch.as_tensor(offsets, dtype=torch.int64).to(dev)
         lens = torch.as_tensor(lengths, dtype=torch.int64).to(dev)
@@ -416,30 +474,36 @@ def kernels_vs_plain(dev) -> dict[str, int]:
 
 
 def threaded_launches(dev, threads: int = 8, each: int = 500) -> int:
-    """``threads`` threads launch kernel #3 ``each`` times each on one
-    63-byte string at once; returns the launch count read after they all
-    joined, which must be exact (threads * each)."""
+    """``threads`` threads hash ``each`` distinct values each through the
+    engine's single-value route (``ops.content_hash``, one launch of kernel
+    #3 a value) at once; every digest must equal the plain version's.
+    Returns the launch count read after they all joined, which must be
+    exact (threads * each)."""
     import threading
 
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.fphash import fphash
+    from repro_torch.kernels import ops, ref
 
-    x = torch.arange(63, dtype=torch.uint8, device=dev)
-    fphash(x)                             # the library is loaded before
+    rng = np.random.default_rng(5)
+    values = [[rng.bytes(int(n)) for n in rng.integers(0, 5000, each)]
+              for _ in range(threads)]
+    want = [ops.hash_many_with(ref.fphash_many_ref, vs) for vs in values]
+    got: list[list[bytes]] = [[] for _ in range(threads)]
+    ops.content_hash(b"")                 # the library is loaded before
     synchronize(dev)
     start = threading.Barrier(threads)
     errors: list[BaseException] = []
 
-    def work():
+    def work(i):
         try:
             start.wait()
-            for _ in range(each):
-                fphash(x)
+            for v in values[i]:
+                got[i].append(ops.content_hash(v))
         except Exception as e:            # reported by the check below
             errors.append(e)
 
     ops.reset_launches()
-    workers = [threading.Thread(target=work) for _ in range(threads)]
+    workers = [threading.Thread(target=work, args=(i,))
+               for i in range(threads)]
     for w in workers:
         w.start()
     for w in workers:
@@ -450,6 +514,7 @@ def threaded_launches(dev, threads: int = 8, each: int = 500) -> int:
           f"a launching thread failed or hung: {errors[:1]}")
     check(n == threads * each, f"{threads} threads x {each} launches of "
                                f"fphash counted {n}")
+    check(got == want, "a thread's single-value digest differs from plain")
     return n
 
 
@@ -681,14 +746,40 @@ def memory_uids(ds: dict) -> list[bytes]:
         hashing.use_sha256()
 
 
+@contextlib.contextmanager
+def queued_checks(out: dict):
+    """fphash cids, whose single hashes also count the calls that found
+    work still queued on the current stream, which their wait waits for as
+    well: ``out["queued_checks"]`` of ``out["checks"]`` (one stream query a
+    check; fphash cids stay on after)."""
+    from repro_torch.core import hashing
+    from repro_torch.kernels import ops
+
+    out.update(queued_checks=0, checks=0)
+
+    def single(data):
+        out["checks"] += 1
+        if not torch.cuda.current_stream().query():
+            out["queued_checks"] += 1
+        return ops.content_hash(data)
+
+    hashing.set_default_hash(single, ops.content_hash_many)
+    try:
+        yield
+    finally:
+        hashing.use_fphash()
+
+
 def durable_path(ds: dict, want_uids: list[bytes]) -> dict:
     """The durable engine on dataset ``ds``: ``ForkBase(durable_root=...,
     verify_get=True)`` with fphash cids in a fresh temporary directory puts
     v1, v2 and the fork, syncs and closes; a new engine reopens the root
     and reads every version back.  The uids must equal ``want_uids``, an
-    in-memory engine's for the same values.  Then the mean time of one
-    per-chunk check (``cid_of``, one single-string fphash launch) on leaf
-    chunks of the dataset.  The directory is removed at the end."""
+    in-memory engine's for the same values; the puts' single hashes count
+    those that found work queued on the stream (``queued_checks``).  Then
+    the mean time of one per-chunk check (``cid_of``, one single-string
+    fphash launch) on leaf chunks of the dataset.  The directory is removed
+    at the end."""
     import shutil
     import tempfile
 
@@ -703,7 +794,8 @@ def durable_path(ds: dict, want_uids: list[bytes]) -> dict:
     try:
         db = ForkBase(durable_root=root, verify_get=True)
         ops.reset_launches()
-        out.update(put_versions(db, ds))
+        with queued_checks(out):
+            out.update(put_versions(db, ds))
         t = time.perf_counter()
         db.sync()
         out["sync_s"] = time.perf_counter() - t
@@ -1777,12 +1869,13 @@ def cluster_kernels_vs_plain(dev, rerep_raw: bytes, leaf_raw: bytes,
                              seed: int = 3) -> dict[str, int]:
     """Each kernel at the shapes phase 7 adds, against its plain version:
     the bitmap on one 8 KB skew value, fphash_many on a batch of one chunk
-    (as ``rereplicate_step`` hashes it) and fphash on one leaf chunk (as a
-    verifying node store checks it)."""
+    (as ``rereplicate_step`` hashes it) and fphash on one leaf chunk
+    through the engine's single-value route (as a verifying node store
+    checks it)."""
     from repro_torch.core import rolling
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.chunker import boundary_bitmap
-    from repro_torch.kernels.fphash import fphash, fphash_many
+    from repro_torch.kernels.fphash import fphash_many
 
     x = torch.from_numpy(np.frombuffer(
         np.random.default_rng(seed).bytes(SKEW_VALUE_BYTES), np.uint8)
@@ -1797,7 +1890,7 @@ def cluster_kernels_vs_plain(dev, rerep_raw: bytes, leaf_raw: bytes,
     check(torch.equal(k, p), "fphash_many differs from plain on a batch of one")
     err["fphash_many"] = max_err(k, p)
     m = torch.from_numpy(np.frombuffer(leaf_raw, np.uint8).copy()).to(dev)
-    k, p = fphash(m), ref.fphash_ref(m)
+    k, p = cid_tensor(ops.content_hash(leaf_raw)), ref.fphash_ref(m).cpu()
     check(torch.equal(k, p), "fphash differs from plain on a leaf chunk")
     err["fphash"] = max_err(k, p)
     return err
@@ -3306,9 +3399,9 @@ def time_kernels(mp: dict, dev) -> list[dict]:
     from repro_torch.core import chunk as ck
     from repro_torch.core import rolling
     from repro_torch.core.postree import POSTree
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.chunker import boundary_bitmap
-    from repro_torch.kernels.fphash import fphash, fphash_many
+    from repro_torch.kernels.fphash import fphash, fphash_host, fphash_many
 
     out = []
     db, v1 = mp["db"], mp["v1"]
@@ -3333,6 +3426,7 @@ def time_kernels(mp: dict, dev) -> list[dict]:
     offs = torch.from_numpy(np.cumsum(lengths) - lengths).to(dev)
     lens = torch.from_numpy(lengths).to(dev)
     data = torch.frombuffer(bytearray(b"".join(raws)), dtype=torch.uint8).to(dev)
+    leaf = min(raws, key=lambda r: abs(len(r) - 4097))   # a 4 KB leaf
     del raws
     k = fphash_many(data, offs, lens)
     p = ref.fphash_many_ref(data, offs, lens)
@@ -3348,22 +3442,48 @@ def time_kernels(mp: dict, dev) -> list[dict]:
                 "bound_ms": b, "bound_by": by, "max_abs_err": max_err(k, p)})
     del data, offs, lens, k, p
 
+    # kernel #3: the engine's single-value route (fphash_host, from pinned
+    # host memory) against its plain version, and the old route (fphash on
+    # a tensor already on the card; to_device and _digest_bytes around it
+    # for a host value) timed beside it
     m = torch.frombuffer(bytearray(meta), dtype=torch.uint8).to(dev)
-    k, p = fphash(m), ref.fphash_ref(m)
+    k, p = cid_tensor(fphash_host(meta, dev)), ref.fphash_ref(m).cpu()
     check(torch.equal(k, p), "fphash differs from plain on a meta chunk")
+    check(torch.equal(fphash(m).cpu(), p),
+          "the old fphash route differs from plain on a meta chunk")
     b, by = bound_ms(m.numel() + 32, fp_ops(np.array([m.numel()])))
+
+    def old_route(raw):
+        return ops._digest_bytes(fphash(ops.to_device(raw))[None])[0]
+
+    values = {"meta": meta, "leaf": leaf}
+    check(all(ops.content_hash(v) == old_route(v) for v in values.values()),
+          "the single-value routes differ on the timed values")
     out.append({"name": "fphash", "shape": f"meta chunk, {m.numel()} B",
-                "ms": cuda_ms(lambda: fphash(m), 100),
-                "kernel_ms": kernel_ms(lambda: fphash(m), "fphash", 100),
+                "ms": cuda_ms(lambda: fphash_host(meta, dev), 100),
+                "kernel_ms": kernel_ms(lambda: fphash_host(meta, dev),
+                                       "fphash", 100),
+                "old_ms": cuda_ms(lambda: fphash(m), 100),
+                "old_kernel_ms": kernel_ms(lambda: fphash(m), "fphash_one",
+                                           100),
+                "host_ms": {k: host_ms(lambda: ops.content_hash(v), 2000)
+                            for k, v in values.items()},
+                "old_host_ms": {k: host_ms(lambda: old_route(v), 2000)
+                                for k, v in values.items()},
+                "host_bytes": {k: len(v) for k, v in values.items()},
+                "launch_floor_ms": launch_floor_ms(dev),
                 "plain_ms": cuda_ms(lambda: ref.fphash_ref(m), 10),
                 "bound_ms": b, "bound_by": by, "max_abs_err": max_err(k, p)})
     return out
 
 
-# the kernel function of each wrapper, as ptxas names it in its -v report
+# the kernel function of each wrapper, as ptxas names it in its -v report:
+# kernel #3's row is the engine's route (fphash_host, counted as "fphash");
+# fphash_one is the old route on a tensor already on the card
 ENTRY_FUNCTIONS = {"chunker_kernel": "boundary_bitmap",
                    "fphash_many_kernel": "fphash_many",
-                   "fphash_one_kernel": "fphash"}
+                   "fphash_host_kernel": "fphash",
+                   "fphash_one_kernel": "fphash_one"}
 
 
 def ptxas_report(log: str) -> dict[str, dict]:
@@ -3388,6 +3508,10 @@ def ptxas_report(log: str) -> dict[str, dict]:
             out[name]["registers"] = int(m.group(1))
     return out
 
+
+# kernel #3's row also gives the old route and the single-call floor
+ROUTE_KEYS = ("old_ms", "old_kernel_ms", "host_ms", "old_host_ms",
+              "host_bytes", "launch_floor_ms")
 
 SOURCES = {
     "boundary_bitmap": ("src/repro_torch/kernels/csrc/chunker.cu",
@@ -3442,15 +3566,16 @@ def main() -> int:
                     or "error" in line.lower()):
                 print(f"  {name}: {line.strip()}")
         ptx.update(ptxas_report(log))
-    check(set(ptx) == set(SOURCES), f"no ptxas report for some kernels: {ptx}")
+    check(set(ptx) == set(ENTRY_FUNCTIONS.values()),
+          f"no ptxas report for some kernels: {ptx}")
     check(not any(v["spill_bytes"] for v in ptx.values()),
           f"a kernel spills to local memory: {ptx}")
 
     t = time.perf_counter()
     err = kernels_vs_plain(dev)
     counted = threaded_launches(dev)
-    print(f"launch counter: 8 threads x 500 fphash launches counted "
-          f"{counted}")
+    print(f"launch counter: 8 threads x 500 distinct values through "
+          f"ops.content_hash, every digest right, {counted} fphash launches")
     print(f"phase 2 (kernels vs plain): {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -3506,6 +3631,7 @@ def main() -> int:
         "segments": dp["segments"], "disk_bytes": dp["disk_bytes"],
         "v2_new_bytes": dp["v2_new_bytes"],
         "check_ms": dp["check_ms"], "check_bytes": dp["check_bytes"],
+        "queued_checks": dp["queued_checks"], "put_checks": dp["checks"],
         "put_launches": dp["put_launches"],
         "get_launches": dp["get_launches"]}))
 
@@ -3655,7 +3781,8 @@ def main() -> int:
             "mesh_launches": mesh[row["name"]],
             "multicard_launches": multicard[row["name"]],
             "kernel_ms": row["kernel_ms"],
-            "registers": ptx[row["name"]]["registers"]})
+            "registers": ptx[row["name"]]["registers"],
+            **{k: row[k] for k in ROUTE_KEYS if k in row}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -27,8 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
-# C signature of every entry point: argument types; each returns the
-# cudaError_t of cudaGetLastError() after its launch.
+# C signature of every entry point: argument types; each returns a
+# cudaError_t: cudaGetLastError() after its launch (fphash_host_cuda: then
+# its stream's synchronisation; fphash_host_map: the driver's mapping).
 SIGNATURES = {
     "chunker": {
         "boundary_bitmap_cuda": (_P, _I64, _P, ctypes.c_int,
@@ -37,6 +38,8 @@ SIGNATURES = {
     "fphash": {
         "fphash_many_cuda": (_P, _P, _P, _I64, _P, _P),
         "fphash_one_cuda": (_P, _I64, _P, _P),
+        "fphash_host_map": (_P, ctypes.c_int, _P),
+        "fphash_host_cuda": (_P, _I64, _P, ctypes.c_int, _P),
     },
 }
 

@@ -2,7 +2,9 @@
 // (sm_90a).  Replaces the Pallas TPU kernels
 // repro/kernels/fphash.py::_fphash_many_kernel (wrapper _run_many, entry
 // point fphash_many) and ::_fphash_kernel (wrapper _run, entry point
-// fphash); both entry points run one device routine, one warp per chunk.
+// fphash); every entry point runs one device routine, one warp per chunk.
+// The engine's single values take fphash_host_cuda (below); fphash_one_cuda
+// hashes one string already on the card.
 //
 // State: 8 x 128 u32 words, initialised to mix32(iota + GOLD).  Each chunk
 // is zero-padded to 4 KB blocks (at least one); a block is XORed in and
@@ -41,6 +43,25 @@
 // One launch takes a ragged batch: chunk i is lengths[i] bytes at
 // offsets[i] of one concatenated buffer.
 //
+// One value from the host (fphash_host_cuda, which replaces
+// repro/kernels/fphash.py::_fphash_kernel on the engine's path): what
+// bounds a single call on this card is not operations (a 4 KB chunk is
+// ~30K integer operations, under a microsecond) but the launch, the PCIe
+// round trip and the synchronisation.  The old route paid two copies
+// through the driver (a pageable H2D staged by the driver, then a D2H of
+// the digest), two synchronisations and ~10 small torch calls around a
+// 3 us kernel.  Here the value sits in pinned host memory that the card
+// maps (a device view of the wrapper's staging buffer), the kernel reads
+// it there by cp.async and writes the 8 digest words back there, and the
+// host waits once on the stream.  A read of mapped memory waits a PCIe
+// round trip (~1-2 us), so the warp issues the copies of the whole value
+// at once through a ring of kHostSlots 4 KB slots, each with its own tail
+// granule (37,008 B of static shared memory): the largest chunk the engine
+// makes (8 x 4 KB + the type byte) is 9 blocks, all in flight before the
+// first wait.  Longer values stream through the same slots, 8 blocks in
+// flight while one is absorbed.  The rounds, the absorb and the finalize
+// are the batch routine's, so the digest is fphash_many's bit for bit.
+//
 // Where it can go wrong, and what is done about it:
 //  - Unaligned chunks: offsets are arbitrary.  The stage starts at the
 //    chunk's first byte rounded down to 16 (the granule that holds that
@@ -65,11 +86,13 @@ namespace {
 constexpr int kWarps = 4;                   // chunks per block of the batch
 constexpr int kBlockBytes = 4096;           // absorb block
 constexpr int kGranules = kBlockBytes / 16 + 1;  // + the misaligned tail's
+constexpr int kSlots = 2;                   // a batch warp's double buffer
+constexpr int kHostSlots = 9;               // a host value's ring
 constexpr int kRounds = 4;
 constexpr uint32_t kGold = 0x9E3779B9u;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-using Stage = uint4[2][kGranules];          // one warp's double buffer
+using Stage = uint4[kSlots][kGranules];     // one warp's double buffer
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -96,8 +119,10 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// Wait until at most n of this lane's newest copy groups are in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(n) : "memory");
 }
 
 // Stage block b: granule g holds the bytes base + 4096 b + 16 g ..., where
@@ -162,10 +187,13 @@ __device__ __forceinline__ void fp_round(uint32_t (&s)[8][4], int lane) {
   }
 }
 
-// One chunk of len bytes at src, hashed by the calling warp into out8.
+// One chunk of len bytes at src, hashed by the calling warp into out8,
+// staged through the warp's ring of slots: slots - 1 blocks in flight
+// while one is absorbed.
+template <int slots>
 __device__ void hash_chunk(const uint8_t* src, int64_t len,
-                           uint32_t* __restrict__ out8, Stage& stage,
-                           int lane) {
+                           uint32_t* __restrict__ out8,
+                           uint4 (&stage)[slots][kGranules], int lane) {
   const uintptr_t start = reinterpret_cast<uintptr_t>(src);
   const uintptr_t base = start & ~static_cast<uintptr_t>(15);
   const int a16 = static_cast<int>(start - base);
@@ -181,14 +209,22 @@ __device__ void hash_chunk(const uint8_t* src, int64_t len,
     }
   }
 
-  stage_block(stage[0], base, end, 0, lane);
-  cp_async_commit();
+  // one copy group a block (empty past the last), blocks 0..slots-2 first
+#pragma unroll
+  for (int p = 0; p < slots - 1; ++p) {
+    if (p < nb) stage_block(stage[p], base, end, p, lane);
+    cp_async_commit();
+  }
   for (int64_t b = 0; b < nb; ++b) {
-    if (b + 1 < nb) stage_block(stage[(b + 1) & 1], base, end, b + 1, lane);
-    cp_async_commit();                      // (empty after the last block)
-    cp_async_wait_prior();                  // this lane's copies of block b
+    const int64_t ahead = b + slots - 1;    // into the slot block b-1 left
+    if (ahead < nb) {
+      stage_block(stage[static_cast<uint64_t>(ahead) % slots], base, end,
+                  ahead, lane);
+    }
+    cp_async_commit();
+    cp_async_wait<slots - 1>();             // this lane's copies of block b
     __syncwarp();                           // ... and every other lane's
-    absorb(s, stage[b & 1], a16, lane);
+    absorb(s, stage[static_cast<uint64_t>(b) % slots], a16, lane);
     __syncwarp();                           // read before it is restaged
 #pragma unroll 1
     for (int i = 0; i < kRounds; ++i) fp_round(s, lane);
@@ -237,6 +273,22 @@ fphash_one_kernel(const uint8_t* __restrict__ data, int64_t len,
   hash_chunk(data, len, out, stage, threadIdx.x);
 }
 
+// data and out are device views of pinned host memory.
+__global__ void __launch_bounds__(32)
+fphash_host_kernel(const uint8_t* __restrict__ data, int64_t len,
+                   uint32_t* __restrict__ out) {
+  __shared__ uint4 stage[kHostSlots][kGranules];
+  hash_chunk(data, len, out, stage, threadIdx.x);
+}
+
+// Make device the calling thread's current device; prev receives the one
+// it replaced.
+cudaError_t enter_device(int device, int* prev) {
+  cudaError_t err = cudaGetDevice(prev);
+  if (err == cudaSuccess && *prev != device) err = cudaSetDevice(device);
+  return err;
+}
+
 }  // namespace
 
 // Ragged batch: chunk i is lengths[i] bytes at data + offsets[i]; out holds
@@ -260,4 +312,43 @@ extern "C" int fphash_one_cuda(const void* data, int64_t len, void* out,
   fphash_one_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), len, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The device view of the pinned host buffer at host, for device: fails
+// unless the card can use the host pointers of pinned memory (which
+// torch's host allocator may pin with cudaHostRegister) and the buffer is
+// mapped.  Under unified addressing the view is the same address.
+extern "C" int fphash_host_map(const void* host, int device, void** view) {
+  int prev = device;
+  cudaError_t err = enter_device(device, &prev);
+  int can = 0;
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &can, cudaDevAttrCanUseHostPointerForRegisteredMem, device);
+  }
+  if (err == cudaSuccess && !can) err = cudaErrorNotSupported;
+  if (err == cudaSuccess) {
+    err = cudaHostGetDevicePointer(view, const_cast<void*>(host), 0);
+  }
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
+// One byte string of len bytes at in, a device view of pinned host memory,
+// hashed into the 8 u32 at out, a device view of pinned host memory: one
+// launch on stream of device, then the wait for that stream.  Returns the
+// launch's error, else the wait's.
+extern "C" int fphash_host_cuda(const void* in, int64_t len, void* out,
+                                int device, void* stream) {
+  int prev = device;
+  cudaError_t err = enter_device(device, &prev);
+  if (err == cudaSuccess) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    fphash_host_kernel<<<1, 32, 0, s>>>(static_cast<const uint8_t*>(in), len,
+                                        static_cast<uint32_t*>(out));
+    err = cudaGetLastError();
+    if (err == cudaSuccess) err = cudaStreamSynchronize(s);
+  }
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
 }

@@ -12,9 +12,9 @@ Engine hooks (the counterparts of ``repro.kernels.ops``):
   * ``core.chunker`` calls ``boundary_bitmap`` by default;
     ``use_kernel_chunker(False)`` swaps in the plain version on the device;
   * ``use_kernel_hash()`` (that is, ``core.hashing.use_fphash()``) routes
-    cids through ``content_hash`` / ``content_hash_many`` (one
-    ``fphash_many`` launch per batch); ``use_kernel_hash(False)`` restores
-    sha256.
+    cids through ``content_hash`` (one ``fphash_host`` launch, zero-copy
+    from pinned host memory) / ``content_hash_many`` (one ``fphash_many``
+    launch per batch); ``use_kernel_hash(False)`` restores sha256.
 """
 from __future__ import annotations
 
@@ -111,9 +111,14 @@ def hash_many_with(fn, blobs) -> list[bytes]:
                             torch.from_numpy(lengths).to(_DEVICE)))
 
 
-def content_hash(data: bytes) -> bytes:
-    """fphash cid of one byte string by the single-string kernel."""
-    return _digest_bytes(_kfphash.fphash(to_device(bytes(data)))[None])[0]
+def content_hash(data) -> bytes:
+    """fphash cid of one host byte string: on a CUDA engine device by the
+    kernel reading it from pinned host memory (``fphash_host``), on the
+    CPU by the plain version."""
+    dev = ready_device()
+    if dev.type == "cuda":
+        return _kfphash.fphash_host(data, dev)
+    return _digest_bytes(fphash_ref(to_device(data))[None])[0]
 
 
 def content_hash_many(blobs) -> list[bytes]:

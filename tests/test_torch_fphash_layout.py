@@ -16,14 +16,27 @@ step, for a batch of chunks at once:
     misalignment 0..15;
   * the warp's XOR fold by butterfly shuffles, lanes 0..7 writing.
 
+The single-value entry (fphash_host_kernel) runs the same warp through a
+ring of 9 slots of 257 granules: blocks 0..7 are issued first and block
+b + 8 before block b is waited for, so a value of up to 9 blocks is in
+flight whole before the first wait, and longer values stream through the
+slots with 8 blocks in flight; ``ring_model`` runs that schedule with the
+copies landing only at their wait.
+
 Tolerance: none, every digest is compared bit for bit.
 """
 import numpy as np
 import pytest
 import torch
+from torch_threads import torch_one_thread  # noqa: F401
 
 from repro.kernels.fphash import _fphash_many_host
+from repro_torch.kernels import ops  # noqa: F401  (before ref: see below)
 from repro_torch.kernels.ref import fphash_many_ref
+
+# repro_torch.kernels.ref imported first is a cycle (ref -> core ->
+# core.chunker -> kernels.ops -> ref); ops first imports the package in an
+# order that works
 
 GOLD = np.uint32(0x9E3779B9)
 LANES = np.arange(32)
@@ -31,6 +44,10 @@ BLOCK = 4096
 GRANULES = BLOCK // 16 + 1
 FP_LENGTHS = [0, 1, 31, 4095, 4096, 4097, 12288, 32768, 32769, 65536]
 LENGTHS = FP_LENGTHS + [3, 5, 32_800]
+HOST_SLOTS = 9
+# the single-value route's lengths: a meta chunk, a 4 KB leaf with its
+# type byte, the largest chunk, one byte past the 9-block stage, a long value
+HOST_LENGTHS = FP_LENGTHS + [63, 4097, 32_769, 36_865, (1 << 20) + 3]
 
 
 def _mix32(x):
@@ -129,6 +146,80 @@ def warp_model(mem: np.ndarray, starts: np.ndarray, length: int):
     return out, top
 
 
+def _finalize(s, length):
+    with np.errstate(over="ignore"):
+        s = s ^ np.uint32(length & 0xFFFFFFFF)
+        s = _round(_round(s))
+        f = np.bitwise_xor.reduce(s, axis=-1)
+        for off in (16, 8, 4, 2, 1):
+            f = f ^ _shfl(f, LANES ^ off)
+        lane = np.arange(8)
+        return _mix32(f[:, lane, lane] ^ (lane.astype(np.uint32) * GOLD))
+
+
+def ring_model(mem: np.ndarray, starts: np.ndarray, length: int,
+               slots: int = HOST_SLOTS):
+    """Digests (m, 8) u32 of the chunks mem[start:start+length] by the
+    single-value kernel's schedule: a ring of ``slots`` slots, one copy
+    group a block (empty past the last), blocks 0..slots-2 issued first,
+    block b + slots - 1 issued before block b is waited for, and a wait
+    that lands every group but the newest slots - 1.  A slot holds garbage
+    until its copy lands.  Returns the digests, each chunk's highest byte
+    index read, the blocks issued before the first wait and the most
+    blocks in flight while one was absorbed."""
+    m = len(starts)
+    lens = np.full(m, length, dtype=np.int64)
+    a16 = (starts & 15).astype(np.int64)
+    rng = np.random.default_rng(length)
+    ring = rng.integers(0, 256, (slots, m, GRANULES * 16), dtype=np.uint8)
+    holds = [None] * slots            # block whose copy landed in a slot
+    groups = []                       # commit order: (slot, block, bytes)
+    landed = 0
+    k = (128 * np.arange(8)[:, None] + 32 * np.arange(4)[None, :]
+         )[None] + LANES[:, None, None]
+    s = np.broadcast_to(_mix32(k.astype(np.uint32) + GOLD), (m, 32, 8, 4))
+    nb = max(1, -(-length // BLOCK))
+    top = np.full(m, -1)
+    busy = set()                      # slots issued and not yet absorbed
+
+    def issue(b):
+        slot = b % slots
+        assert slot not in busy       # restaged only after its absorb
+        busy.add(slot)
+        stage, hi = _stage(mem, starts, lens, b)
+        np.maximum(top, hi, out=top)
+        groups.append((slot, b, stage))
+
+    for p in range(slots - 1):
+        if p < nb:
+            issue(p)
+        else:
+            groups.append(None)
+    first_wait = in_flight = 0
+    with np.errstate(over="ignore"):
+        for b in range(nb):
+            if b + slots - 1 < nb:
+                issue(b + slots - 1)
+            else:
+                groups.append(None)
+            if b == 0:
+                first_wait = sum(g is not None for g in groups)
+            # cp.async.wait_group slots - 1
+            while landed < len(groups) - (slots - 1):
+                if groups[landed] is not None:
+                    slot, blk, stage = groups[landed]
+                    ring[slot] = stage
+                    holds[slot] = blk
+                landed += 1
+            in_flight = max(in_flight, len(busy) - 1)
+            assert holds[b % slots] == b
+            s = _absorb(s, ring[b % slots], a16)
+            busy.discard(b % slots)
+            for _ in range(4):
+                s = _round(s)
+    return _finalize(s, length), top, first_wait, in_flight
+
+
 def _init_state():
     idx = np.arange(1024, dtype=np.uint32).reshape(8, 128)
     with np.errstate(over="ignore"):
@@ -190,3 +281,42 @@ def test_warp_fold_is_the_lane_xor():
         f = f ^ _shfl(f, LANES ^ off)
     want = np.bitwise_xor.reduce(state, axis=-1)
     np.testing.assert_array_equal(f, np.broadcast_to(want[:, None], f.shape))
+
+
+@pytest.mark.parametrize("length", HOST_LENGTHS)
+def test_ring_schedule_matches_references(length):
+    """The single-value kernel's ring at offset 0 (the wrapper's pinned
+    staging buffer) and at offset 5, with random bytes past each chunk:
+    held bit for bit against the JAX package's numpy path and the port's
+    plain version.  A value of up to 9 blocks is issued whole before the
+    first wait; longer ones keep 8 blocks in flight."""
+    rng = np.random.default_rng(length + 23)
+    mem = rng.integers(0, 256, length + 5 + 64, dtype=np.uint8)
+    starts = np.array([0, 5], dtype=np.int64)
+    got, top, first_wait, in_flight = ring_model(mem, starts, length)
+    assert (top < starts + length).all()        # nothing past a chunk's end
+    nb = max(1, -(-length // BLOCK))
+    assert first_wait == min(nb, HOST_SLOTS)
+    assert in_flight == min(nb - 1, HOST_SLOTS - 1)
+    blobs = [mem[o:o + length].tobytes() for o in starts]
+    host = _fphash_many_host(blobs, [nb] * len(blobs))
+    plain = fphash_many_ref(torch.from_numpy(mem), torch.from_numpy(starts),
+                            torch.full((2,), length, dtype=torch.int64))
+    for i in range(len(starts)):
+        assert got[i].astype("<u4").tobytes() == host[i]
+        assert got[i].astype("<i4").tobytes() == \
+            plain[i].numpy().astype("<i4").tobytes()
+
+
+def test_two_slot_ring_is_the_warp_schedule():
+    """The batch kernel's double buffer is the same ring with 2 slots:
+    one block in flight while one is absorbed, the digests unchanged."""
+    rng = np.random.default_rng(31)
+    mem = rng.integers(0, 256, 3 * BLOCK + 40, dtype=np.uint8)
+    starts = np.arange(16, dtype=np.int64)
+    got, top, first_wait, in_flight = ring_model(mem, starts, 3 * BLOCK + 7,
+                                                 slots=2)
+    want, want_top = warp_model(mem, starts, 3 * BLOCK + 7)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(top, want_top)
+    assert (first_wait, in_flight) == (2, 1)
