@@ -113,7 +113,6 @@ class ForkBase:
         self._durable_root = durable_root
         self.store = store if store is not None else ChunkStore()
         self.params = params
-        self._obs_get_tick = 7       # 1-in-8 get timing; first sampled
         # verify-on-get: every Get re-hashes the meta chunk against its
         # uid (per-call ``verify=`` overrides; checks count in StoreStats)
         self.verify_get = verify_get
@@ -219,21 +218,9 @@ class ForkBase:
         engine's ``verify_get``) re-hashes the meta chunk against the uid
         and raises TamperedChunk on mismatch.
 
-        Reads are histogram-only (``engine_get_us``), timed at a 1-in-8
-        sample: a span (or even an unconditional timer) per get would
-        tax the O(10µs) hot path the obs-overhead gate protects, so
-        only the write verbs carry full span trees."""
-        if not obs.REGISTRY.enabled:
-            return self._get_inner(key, branch, uid=uid, verify=verify)
-        self._obs_get_tick = tick = (self._obs_get_tick + 1) & 7
-        if tick:
-            return self._get_inner(key, branch, uid=uid, verify=verify)
-        t0 = obs.monotonic()
-        out = self._get_inner(key, branch, uid=uid, verify=verify)
-        obs.REGISTRY.histogram("engine_get_us").observe(obs.monotonic() - t0)
-        return out
-
-    def _get_inner(self, key, branch, *, uid, verify):
+        A get carries no span: it is the O(10µs) hot path the
+        obs-overhead gate protects; the work of reading a value is timed
+        where it happens, in the ``tree.load`` and ``tree.read`` spans."""
         key = _k(key)
         if uid is None:
             uid = self.branches.head(key, branch or DEFAULT_BRANCH)
@@ -330,8 +317,8 @@ class ForkBase:
             verify = kw.get("verify")
             verify = self.verify_get if verify is None else verify
             if verify:                     # verify re-hashes per chunk
-                out[i] = self._get_inner(key, branch,
-                                         uid=kw.get("uid"), verify=True)
+                out[i] = self.get(key, branch, uid=kw.get("uid"),
+                                  verify=True)
                 continue
             uid = kw.get("uid")
             if uid is None:
@@ -459,11 +446,12 @@ class ForkBase:
         returns, reopening the same root resumes with bit-identical
         heads and every chunk reachable from them.  A no-op flush on a
         non-durable engine."""
-        self.store.flush()
-        if self._durable_root is not None:
-            from ..storage.durable import write_durably
-            write_durably(_heads_path(self._durable_root),
-                          self.branches.snapshot())
+        with obs.trace("engine.sync"):
+            self.store.flush()
+            if self._durable_root is not None:
+                from ..storage.durable import write_durably
+                write_durably(_heads_path(self._durable_root),
+                              self.branches.snapshot())
 
     # ---------------------------------------------------- observability
     def observe(self) -> dict:

@@ -97,13 +97,11 @@ def load_fobject(store, uid: bytes, verify: bool = False) -> FObject:
     so a corrupted or substituted version can never deserialize."""
     raw = store.get(uid)
     if verify:
+        from ..storage.backend import StoreStats, check_chunk
         from .chunk import cid_of
-        st = getattr(store, "stats", None)
-        ok = cid_of(raw) == bytes(uid)
-        if st is not None:
-            st.verifies += 1
-            st.verify_failures += 0 if ok else 1
-        if not ok:
+        # a store without stats still gets the check, counted nowhere
+        st = getattr(store, "stats", None) or StoreStats()
+        if not check_chunk(st, cid_of, raw, bytes(uid)):
             from ..storage import TamperedChunk
             raise TamperedChunk(bytes(uid), "Get-Meta")
     return FObject.deserialize(raw, uid)

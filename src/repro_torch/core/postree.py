@@ -30,6 +30,7 @@ from . import chunk as ck
 from .chunk import Entry
 from .chunker import (ChunkParams, DEFAULT_PARAMS, boundary_bitmap,
                       cut_bytes, cut_elements, index_cuts)
+from .. import obs
 from ..errors import InvariantViolation
 from ..storage import WriteBuffer
 
@@ -163,35 +164,37 @@ class POSTree:
     def from_root(cls, store, kind: int, root_cid: bytes,
                   params: ChunkParams = DEFAULT_PARAMS) -> "POSTree":
         """Materialize the index (not the leaves) from a stored root."""
-        root_raw = store.get(root_cid)
-        raw = ck.chunk_payload(root_raw)
-        rtype = ck.chunk_type(root_raw)
-        if rtype in (ck.UINDEX, ck.SINDEX):
-            # walk down, collecting each level's entries; each level is
-            # fetched with ONE batched get_many, not a get per node
-            levels_desc = []
-            entries = (ck.decode_sindex if rtype == ck.SINDEX
-                       else ck.decode_uindex)(raw)
-            cur = entries
-            while True:
-                levels_desc.append(cur)
-                child = store.get(cur[0].cid)
-                ctype = ck.chunk_type(child)
-                if ctype not in (ck.UINDEX, ck.SINDEX):
-                    break
-                dec = ck.decode_sindex if ctype == ck.SINDEX else ck.decode_uindex
-                nxt = []
-                for raw_c in store.get_many([e.cid for e in cur]):
-                    nxt.extend(dec(ck.chunk_payload(raw_c)))
-                cur = nxt
-            root_count = sum(e.count for e in levels_desc[0])
-            root_key = levels_desc[0][-1].key
-            levels = list(reversed(levels_desc))
-            levels.append([Entry(root_cid, root_count, root_key)])
-            return cls(store, kind, levels, params)
-        # root is a single leaf
-        count, key = cls._leaf_stats(kind, raw)
-        return cls(store, kind, [[Entry(root_cid, count, key)]], params)
+        with obs.trace("tree.load"):
+            root_raw = store.get(root_cid)
+            raw = ck.chunk_payload(root_raw)
+            rtype = ck.chunk_type(root_raw)
+            if rtype in (ck.UINDEX, ck.SINDEX):
+                # walk down, collecting each level's entries; each level is
+                # fetched with ONE batched get_many, not a get per node
+                levels_desc = []
+                entries = (ck.decode_sindex if rtype == ck.SINDEX
+                           else ck.decode_uindex)(raw)
+                cur = entries
+                while True:
+                    levels_desc.append(cur)
+                    child = store.get(cur[0].cid)
+                    ctype = ck.chunk_type(child)
+                    if ctype not in (ck.UINDEX, ck.SINDEX):
+                        break
+                    dec = (ck.decode_sindex if ctype == ck.SINDEX
+                           else ck.decode_uindex)
+                    nxt = []
+                    for raw_c in store.get_many([e.cid for e in cur]):
+                        nxt.extend(dec(ck.chunk_payload(raw_c)))
+                    cur = nxt
+                root_count = sum(e.count for e in levels_desc[0])
+                root_key = levels_desc[0][-1].key
+                levels = list(reversed(levels_desc))
+                levels.append([Entry(root_cid, root_count, root_key)])
+                return cls(store, kind, levels, params)
+            # root is a single leaf
+            count, key = cls._leaf_stats(kind, raw)
+            return cls(store, kind, [[Entry(root_cid, count, key)]], params)
 
     @staticmethod
     def _leaf_stats(kind: int, payload: bytes) -> tuple[int, bytes | None]:
@@ -288,19 +291,20 @@ class POSTree:
         end = min(start + length, self.total_count)
         if end <= start:
             return b""
-        j0, off0 = self.leaf_of_item(start)
-        self.prefetch_leaves(j0, self.leaf_of_item(end - 1)[0] + 1)
-        out = []
-        pos = start
-        j = j0
-        while pos < end:
-            els = self.leaf_elements(j)
-            lo = off0 if j == j0 else 0
-            hi = min(len(els), lo + (end - pos))
-            out.append(els[lo:hi].tobytes())
-            pos += hi - lo
-            j += 1
-        return b"".join(out)
+        with obs.trace("tree.read"):
+            j0, off0 = self.leaf_of_item(start)
+            self.prefetch_leaves(j0, self.leaf_of_item(end - 1)[0] + 1)
+            out = []
+            pos = start
+            j = j0
+            while pos < end:
+                els = self.leaf_elements(j)
+                lo = off0 if j == j0 else 0
+                hi = min(len(els), lo + (end - pos))
+                out.append(els[lo:hi].tobytes())
+                pos += hi - lo
+                j += 1
+            return b"".join(out)
 
     def _leaf_keys(self) -> list[bytes]:
         if self._keycache is None:
@@ -382,30 +386,32 @@ class POSTree:
     def _rebuild_index(self) -> None:
         """Recompute index levels from levels[0] (P' cid patterns, §4.3.3).
         Unchanged nodes hash to their old cids and dedup in the store."""
-        self.levels = [self.levels[0]]
-        self._cum = None
-        self._keycache = None
-        self._leaf_cache.clear()
-        entries = self.levels[0]
-        is_sorted = self.kind in SORTED_KINDS
-        while len(entries) > 1:
-            cuts = index_cuts([e.cid for e in entries], self.params)
-            raws, counts, keys = [], [], []
-            start = 0
-            for c in cuts:
-                group = entries[start:c]
-                raws.append(ck.encode_sindex(group) if is_sorted
-                            else ck.encode_uindex(group))
-                counts.append(sum(e.count for e in group))
-                keys.append(group[-1].key if is_sorted else None)
-                start = c
-            nxt = [Entry(cid, cnt, key) for cid, cnt, key
-                   in zip(self._put_chunks(raws), counts, keys)]
-            self.levels.append(nxt)
-            entries = nxt
+        with obs.trace("tree.index"):
+            self.levels = [self.levels[0]]
+            self._cum = None
+            self._keycache = None
+            self._leaf_cache.clear()
+            entries = self.levels[0]
+            is_sorted = self.kind in SORTED_KINDS
+            while len(entries) > 1:
+                cuts = index_cuts([e.cid for e in entries], self.params)
+                raws, counts, keys = [], [], []
+                start = 0
+                for c in cuts:
+                    group = entries[start:c]
+                    raws.append(ck.encode_sindex(group) if is_sorted
+                                else ck.encode_uindex(group))
+                    counts.append(sum(e.count for e in group))
+                    keys.append(group[-1].key if is_sorted else None)
+                    start = c
+                nxt = [Entry(cid, cnt, key) for cid, cnt, key
+                       in zip(self._put_chunks(raws), counts, keys)]
+                self.levels.append(nxt)
+                entries = nxt
 
-    def _warmup_bytes(self, j0: int) -> bytes:
-        """Last window-1 bytes of the stream before leaf j0."""
+    def _warmup_bytes(self, j0: int) -> tuple[bytes, int]:
+        """Last window-1 bytes of the stream before leaf j0, and the
+        number of leaves read for them."""
         need = self.params.window - 1
         parts: list[bytes] = []
         got = 0
@@ -416,81 +422,105 @@ class POSTree:
             parts.append(take)
             got += len(take)
             j -= 1
-        return b"".join(reversed(parts))
+        return b"".join(reversed(parts)), len(parts)
 
     def splice_bytes(self, edits: list[tuple[int, int, bytes]],
                      sink=None) -> None:
         """Blob: apply [(start, end, replacement)] byte splices (sorted,
-        non-overlapping) and incrementally re-chunk."""
+        non-overlapping) and incrementally re-chunk.  One ``tree.splice``
+        span, whose attributes count the edits, the leaves read, the
+        bytes handed to the bitmap over every attempt (``rechunked``), the
+        leaves written and the attempts; its phases are the spans
+        ``splice.gather``, ``splice.apply``, ``splice.chunk``,
+        ``splice.encode`` and ``tree.index``."""
         if self.kind != ck.BLOB:
             raise InvariantViolation(f"splice_bytes on non-blob kind {self.kind}")
         if not edits:
             return
-        self._open_batch(sink)
-        leaves = self.levels[0]
-        cum = self._cum_counts()
-        total = int(cum[-1]) if len(cum) else 0
-        first = min(e[0] for e in edits)
-        j0 = min(int(np.searchsorted(cum, first, side="right")), len(leaves) - 1)
-        base = int(cum[j0 - 1]) if j0 > 0 else 0
-        last_end = max(e[1] for e in edits)
-        jE = min(int(np.searchsorted(cum, max(last_end - 1, first),
-                                     side="right")), len(leaves) - 1)
-        warm = self._warmup_bytes(j0)
-        grow = max(2, jE - j0 + 1)
-        while True:
-            jx = min(jE + grow, len(leaves) - 1)
-            old = np.concatenate([np.frombuffer(self._leaf_payload(j),
-                                                dtype=np.uint8)
-                                  for j in range(j0, jx + 1)])
-            # apply edits in local coordinates, back to front
-            buf = old
-            for s, e, rep in sorted(edits, reverse=True):
-                ls, le = s - base, e - base
-                buf = np.concatenate([buf[:ls],
-                                      np.frombuffer(rep, dtype=np.uint8),
-                                      buf[le:]])
-            delta = len(buf) - len(old)
-            covered_end = int(cum[jx])            # old coords
-            at_stream_end = jx == len(leaves) - 1
-            wb = np.frombuffer(warm, dtype=np.uint8)
-            bitmap = boundary_bitmap(np.concatenate([wb, buf]), self.params)[len(wb):]
-            cuts = cut_bytes(buf, self.params, bitmap=bitmap)
-            # resync: new cut -> old offset must hit an old leaf boundary
-            stable_from = (last_end - base) + delta + self.params.window
-            splice_at = None   # (cut_idx, old_leaf_index)
-            cumset = {int(c): i + 1 for i, c in enumerate(cum)}
-            for ci, c in enumerate(cuts[:-1] if not at_stream_end else cuts):
-                if c < stable_from:
+        with obs.trace("tree.splice", edits=len(edits)) as sp:
+            self._open_batch(sink)
+            leaves = self.levels[0]
+            cum = self._cum_counts()
+            first = min(e[0] for e in edits)
+            j0 = min(int(np.searchsorted(cum, first, side="right")),
+                     len(leaves) - 1)
+            base = int(cum[j0 - 1]) if j0 > 0 else 0
+            last_end = max(e[1] for e in edits)
+            jE = min(int(np.searchsorted(cum, max(last_end - 1, first),
+                                         side="right")), len(leaves) - 1)
+            grow = max(2, jE - j0 + 1)
+            counts = {"leaves_read": 0, "rechunked": 0, "new_leaves": 0,
+                      "attempts": 0}
+            warm = None
+            while True:
+                counts["attempts"] += 1
+                jx = min(jE + grow, len(leaves) - 1)
+                with obs.trace("splice.gather"):
+                    if warm is None:
+                        warm, n = self._warmup_bytes(j0)
+                        counts["leaves_read"] += n
+                    old = np.concatenate([
+                        np.frombuffer(self._leaf_payload(j), dtype=np.uint8)
+                        for j in range(j0, jx + 1)])
+                    counts["leaves_read"] += jx + 1 - j0
+                with obs.trace("splice.apply"):
+                    # apply edits in local coordinates, back to front
+                    buf = old
+                    for s, e, rep in sorted(edits, reverse=True):
+                        ls, le = s - base, e - base
+                        buf = np.concatenate([
+                            buf[:ls], np.frombuffer(rep, dtype=np.uint8),
+                            buf[le:]])
+                delta = len(buf) - len(old)
+                at_stream_end = jx == len(leaves) - 1
+                with obs.trace("splice.chunk"):
+                    stream = np.concatenate(
+                        [np.frombuffer(warm, dtype=np.uint8), buf])
+                    counts["rechunked"] += len(stream)
+                    bitmap = boundary_bitmap(stream, self.params)[len(warm):]
+                    cuts = cut_bytes(buf, self.params, bitmap=bitmap)
+                # resync: new cut -> old offset must hit an old leaf boundary
+                stable_from = (last_end - base) + delta + self.params.window
+                splice_at = None   # (cut_idx, old_leaf_index)
+                cumset = {int(c): i + 1 for i, c in enumerate(cum)}
+                for ci, c in enumerate(cuts if at_stream_end
+                                       else cuts[:-1]):
+                    if c < stable_from:
+                        continue
+                    old_off = c - delta + base
+                    if old_off in cumset and old_off >= last_end:
+                        splice_at = (ci, cumset[old_off])
+                        break
+                if splice_at is None and not at_stream_end:
+                    grow *= 2
                     continue
-                old_off = c - delta + base
-                if old_off in cumset and old_off >= last_end:
-                    splice_at = (ci, cumset[old_off])
-                    break
-            if splice_at is None and not at_stream_end:
-                grow *= 2
-                continue
-            raws, counts = [], []
-            start = 0
-            upto = len(cuts) if splice_at is None else splice_at[0] + 1
-            for c in cuts[:upto]:
-                raws.append(ck.encode_chunk(ck.BLOB, buf[start:c].tobytes()))
-                counts.append(c - start)
-                start = c
-            new_leaves = [Entry(cid, cnt) for cid, cnt
-                          in zip(self._put_chunks(raws), counts)]
-            tail = leaves[splice_at[1]:] if splice_at else []
-            if len(buf) == 0 and not new_leaves and not tail and j0 == 0:
-                self.levels[0] = self._empty(self.store, ck.BLOB,
-                                             self.params).levels[0]
-            else:
-                self.levels[0] = leaves[:j0] + new_leaves + tail
-                if not self.levels[0]:
+                with obs.trace("splice.encode"):
+                    raws, sizes = [], []
+                    start = 0
+                    upto = (len(cuts) if splice_at is None
+                            else splice_at[0] + 1)
+                    for c in cuts[:upto]:
+                        raws.append(ck.encode_chunk(ck.BLOB,
+                                                    buf[start:c].tobytes()))
+                        sizes.append(c - start)
+                        start = c
+                    new_leaves = [Entry(cid, cnt) for cid, cnt
+                                  in zip(self._put_chunks(raws), sizes)]
+                counts["new_leaves"] = len(new_leaves)
+                tail = leaves[splice_at[1]:] if splice_at else []
+                if len(buf) == 0 and not new_leaves and not tail and j0 == 0:
                     self.levels[0] = self._empty(self.store, ck.BLOB,
                                                  self.params).levels[0]
-            self._rebuild_index()
-            self._commit_batch()
-            return
+                else:
+                    self.levels[0] = leaves[:j0] + new_leaves + tail
+                    if not self.levels[0]:
+                        self.levels[0] = self._empty(self.store, ck.BLOB,
+                                                     self.params).levels[0]
+                self._rebuild_index()
+                self._commit_batch()
+                if sp is not None:
+                    sp.set(**counts)
+                return
 
     def splice_elements(self, edits: list[tuple[int, int, list[bytes],
                                                 list[bytes] | None]],
@@ -533,7 +563,7 @@ class POSTree:
         last_end = max(e[1] for e in edits)
         jE = min(int(np.searchsorted(cum, max(last_end - 1, first),
                                      side="right")), len(leaves) - 1)
-        warm = self._warmup_bytes(j0)
+        warm, _ = self._warmup_bytes(j0)
         grow = max(2, jE - j0 + 1)
         while True:
             jx = min(jE + grow, len(leaves) - 1)

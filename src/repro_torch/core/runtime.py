@@ -79,8 +79,9 @@ class _AdmissionController:
     """Windowed latency signal from instruments ``obs.snapshot()``
     exports.  ``store_put_us{backend=routing}`` is cumulative, so the
     window is the *diff* of its bucket array since the last decision;
-    the span input uses the monotonic ``start_us`` stamp (same clock as
-    event ``mono_us``) to consider only spans that finished since then.
+    the span input scans the span ring (``obs.SPANS``) back from its
+    newest span, on the span clock ``obs.now_ns``, to consider only spans
+    that started since then.
     With observability disabled there are no samples and admission
     falls back to the static queue bound."""
 
@@ -92,7 +93,7 @@ class _AdmissionController:
         self._hist = obs.REGISTRY.histogram("store_put_us",
                                             {"backend": "routing"})
         self._last_buckets = list(self._hist.buckets)
-        self._last_mono_us = obs.monotonic() * 1e6
+        self._last_ns = obs.now_ns()
         self._lock = threading.Lock()
         self.congested = False
 
@@ -111,14 +112,14 @@ class _AdmissionController:
                 return float(1 << i)
         return float(1 << (len(delta) - 1))
 
-    def _fresh_slow_span(self, since_us: float) -> bool:
-        for root in obs.recent_spans():
-            for sp in root.walk():
-                if (sp.start_s * 1e6 > since_us
-                        and sp.name in ("store.put", "cluster.put",
-                                        "engine.put_batch")
-                        and sp.duration_s * 1e6 > self.cfg.slow_span_us):
-                    return True
+    def _fresh_slow_span(self, since_ns: int) -> bool:
+        slow_ns = self.cfg.slow_span_us * 1e3
+        for sp in obs.SPANS.finished_since(since_ns):
+            if (sp.start_ns > since_ns
+                    and sp.name in ("store.put", "cluster.put",
+                                    "engine.put_batch")
+                    and sp.end_ns - sp.start_ns > slow_ns):
+                return True
         return False
 
     def update(self) -> bool:
@@ -128,8 +129,8 @@ class _AdmissionController:
             self.congested = False
             return False
         with self._lock:
-            since = self._last_mono_us
-            self._last_mono_us = obs.monotonic() * 1e6
+            since = self._last_ns
+            self._last_ns = obs.now_ns()
             p99 = self._window_p99()
         congested = (p99 > self.cfg.admission_p99_us
                      or self._fresh_slow_span(since))

@@ -16,14 +16,19 @@ Typical use::
         db.put(key, value)               # nested layer spans attach to sp
     obs.emit("myapp.thing", detail=42)
     snap = obs.snapshot(stores={"store": db.store.stats})
+
+Spans run on ``obs.now_ns()`` (``time.perf_counter_ns``); every finished
+span lands in the ring ``obs.SPANS``; ``obs.unix_ns(t)`` lays a span-clock
+time on the Unix clock of ``time.time_ns`` and ``torch.profiler``.
 """
 from __future__ import annotations
 
 from .events import EVENTS, EventLog, emit
 from .export import prometheus_text, snapshot
 from .metrics import REGISTRY, Counter, Gauge, Histogram, MetricsRegistry
-from .trace import (Span, clear_recent_spans, current_span, monotonic,
-                    recent_spans, trace)
+from .trace import (SPANS, Span, SpanRing, clear_recent_spans,
+                    current_span, monotonic, now_ns, recent_spans, trace,
+                    unix_ns)
 
 __all__ = [
     "Counter",
@@ -33,7 +38,9 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "REGISTRY",
+    "SPANS",
     "Span",
+    "SpanRing",
     "clear_recent_spans",
     "counter",
     "current_span",
@@ -45,6 +52,7 @@ __all__ = [
     "histogram",
     "inc",
     "monotonic",
+    "now_ns",
     "observe",
     "prometheus_text",
     "recent_spans",
@@ -54,6 +62,7 @@ __all__ = [
     "set_gauge",
     "snapshot",
     "trace",
+    "unix_ns",
 ]
 
 

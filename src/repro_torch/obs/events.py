@@ -15,7 +15,7 @@ from collections import Counter as _TallyCounter
 from collections import deque
 
 from .metrics import REGISTRY
-from .trace import _jsonable, monotonic
+from .trace import _jsonable, now_ns
 
 __all__ = ["EventLog", "EVENTS", "emit"]
 
@@ -45,13 +45,13 @@ class EventLog:
         if not self._reg.enabled:
             return
         # ``ts`` (wall clock) is for the JSONL sink and humans; ``mono_us``
-        # shares the span clock (trace.monotonic), so events and span
+        # shares the span clock (trace.now_ns), so events and span
         # timelines correlate — snapshot() exports the same clock's "now"
         # repro: allow(CONTRACT002): journal timestamps are wall-clock on
         # purpose so external logs can be correlated; ordering never uses
         # ts — it uses mono_us from the span clock
         ev = {"kind": kind, "ts": round(time.time(), 6),
-              "mono_us": round(monotonic() * 1e6, 3)}
+              "mono_us": now_ns() / 1e3}
         for k, v in attrs.items():
             ev[k] = _jsonable(v)
         self._ring.append(ev)

@@ -10,9 +10,13 @@ from __future__ import annotations
 
 from .events import EVENTS
 from .metrics import REGISTRY, Counter, Gauge
-from .trace import monotonic, recent_spans
+from .trace import now_ns, recent_spans
 
 __all__ = ["snapshot", "prometheus_text"]
+
+
+#: Root span trees a snapshot exports: the newest in the ring.
+SNAPSHOT_SPANS = 32
 
 
 def snapshot(stores=None, extra=None, *, events_limit: int = 256) -> dict:
@@ -20,14 +24,15 @@ def snapshot(stores=None, extra=None, *, events_limit: int = 256) -> dict:
 
     ``stores``: optional mapping of name → object with ``as_dict()``
     (``StoreStats``).  ``extra``: dict merged into the top level
-    (subsystem verbs like ``ForkBase.observe`` use it).
+    (subsystem verbs like ``ForkBase.observe`` use it).  ``spans``
+    holds the newest ``SNAPSHOT_SPANS`` root span trees.
     """
     out = {
         "enabled": REGISTRY.enabled,
         # monotonic reference point (same clock as event ``mono_us`` and
         # span ``start_us``): consumers compute event/span ages against
         # this instead of wall time, immune to clock steps
-        "now_us": round(monotonic() * 1e6, 3),
+        "now_us": now_ns() / 1e3,
         "metrics": REGISTRY.as_dict(),
         "events": EVENTS.events(limit=events_limit),
         "event_counts": EVENTS.counts(),
@@ -35,7 +40,7 @@ def snapshot(stores=None, extra=None, *, events_limit: int = 256) -> dict:
             "reports": list(REGISTRY.gc_reports),
             "slice_pauses": list(REGISTRY.gc_pauses),
         },
-        "spans": [sp.as_dict() for sp in recent_spans()],
+        "spans": [sp.as_dict() for sp in recent_spans()[-SNAPSHOT_SPANS:]],
     }
     if stores:
         out["stores"] = {name: st.as_dict() for name, st in stores.items()}

@@ -22,12 +22,13 @@ from typing import Iterator, Protocol, Sequence, runtime_checkable
 
 from ..errors import ChunkMissing, TamperedChunk
 from ..obs import REGISTRY as _OBS
+from ..obs import now_ns as _now_ns
 from ..obs import trace as _trace
 
 __all__ = [
     "BackendBase", "ChunkMissing", "StorageBackend", "StoreStats",
-    "TamperedChunk", "delete_via", "group_by", "overlay_get_many",
-    "overlay_has_many", "put_via", "resolve_cids",
+    "TamperedChunk", "check_chunk", "delete_via", "group_by",
+    "overlay_get_many", "overlay_has_many", "put_via", "resolve_cids",
 ]
 
 
@@ -42,6 +43,7 @@ class StoreStats:
     deletes: int = 0              # chunks actually removed (per chunk)
     verifies: int = 0             # chunk-hash integrity checks performed
     verify_failures: int = 0      # checks that caught tampering/corruption
+    verify_ns: int = 0            # ns those checks took (timed while obs is on)
     logical_bytes: int = 0        # sum of bytes across all Puts
     physical_bytes: int = 0       # bytes actually stored (post-dedup)
     reclaimed_bytes: int = 0      # physical bytes freed by deletes
@@ -123,6 +125,22 @@ class StorageBackend(Protocol):
 
     def flush(self) -> None:
         ...
+
+
+def check_chunk(st: StoreStats, cid_of, raw: bytes, cid: bytes) -> bool:
+    """One integrity check: does ``raw`` hash to ``cid``?  Counted in
+    ``st.verifies`` (and ``verify_failures``); while obs is enabled its
+    time goes into ``st.verify_ns``."""
+    st.verifies += 1
+    if _OBS.enabled:
+        t = _now_ns()
+        ok = cid_of(raw) == cid
+        st.verify_ns += _now_ns() - t
+    else:
+        ok = cid_of(raw) == cid
+    if not ok:
+        st.verify_failures += 1
+    return ok
 
 
 def resolve_cids(raws: Sequence[bytes],

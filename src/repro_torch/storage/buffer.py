@@ -21,6 +21,7 @@ batch up a level; only the outermost flush touches the real store.
 """
 from __future__ import annotations
 
+from ..obs import trace as _trace
 from .backend import (BackendBase, overlay_get_many, overlay_has_many,
                       resolve_cids)
 
@@ -121,7 +122,8 @@ class WriteBuffer(BackendBase):
             self.inner.flush()
             return
         if self._raws:
-            self.inner.put_many(self._raws, self._cids)
+            with _trace("buffer.flush"):
+                self.inner.put_many(self._raws, self._cids)
         self._raws = []
         self._cids = []
         self._pending = {}

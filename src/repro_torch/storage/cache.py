@@ -5,8 +5,8 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
-from .backend import (BackendBase, delete_via, overlay_get_many,
-                      overlay_has_many, put_via)
+from .backend import (BackendBase, check_chunk, delete_via,
+                      overlay_get_many, overlay_has_many, put_via)
 
 
 class LRUCacheBackend(BackendBase):
@@ -61,9 +61,7 @@ class LRUCacheBackend(BackendBase):
             st.cache_hits += 1
             if self.verify:
                 from ..core.chunk import cid_of
-                st.verifies += 1
-                if cid_of(self._cache[cid]) != cid:
-                    st.verify_failures += 1
+                if not check_chunk(st, cid_of, self._cache[cid], cid):
                     from .backend import TamperedChunk
                     raise TamperedChunk(cid, "cache hit")
 

@@ -42,8 +42,9 @@ import struct
 
 from ...errors import ConfigError
 from ...obs import emit as obs_emit
+from ...obs import trace as obs_trace
 from ..backend import (BackendBase, ChunkMissing, TamperedChunk,
-                       resolve_cids)
+                       check_chunk, resolve_cids)
 from .fsutil import fsync_dir, replace_durably
 
 _CID = 32
@@ -251,10 +252,7 @@ class SegmentBackend(BackendBase):
                 if off + _HEAD + ln > size:
                     break                    # torn tail write
                 if verify:
-                    raw = f.read(ln)
-                    self.stats.verifies += 1
-                    if cid_of(raw) != cid:
-                        self.stats.verify_failures += 1
+                    if not check_chunk(self.stats, cid_of, f.read(ln), cid):
                         raise TamperedChunk(cid, "segment replay")
                 else:
                     f.seek(ln, 1)
@@ -281,8 +279,7 @@ class SegmentBackend(BackendBase):
         seg = self._active
         footer = _pack_footer(seg.gen, seg.records)
         self._wf.write(footer + _TRAILER.pack(seg.size, _TRAILER_MAGIC))
-        self._wf.flush()
-        os.fsync(self._wf.fileno())
+        self._fsync()
         seg.size += len(footer) + _TRAILER.size
         seg.sealed = True
         seg.records = None
@@ -298,9 +295,7 @@ class SegmentBackend(BackendBase):
         if self.verify and provided:
             cid_of = _chunk_cid_of()
             for i in provided:
-                st.verifies += 1
-                if out[i] != cid_of(raws[i]):
-                    st.verify_failures += 1
+                if not check_chunk(st, cid_of, raws[i], out[i]):
                     raise TamperedChunk(out[i], "Put-Chunk")
         st.put_batches += 1
         for raw, cid in zip(raws, out):
@@ -346,11 +341,8 @@ class SegmentBackend(BackendBase):
                 raise ChunkMissing(cid)
             off, ln = self._segments[gen].live[cid]
             raw = os.pread(self._rfd(gen), ln, off)
-            if verify:
-                st.verifies += 1
-                if cid_of(raw) != cid:
-                    st.verify_failures += 1
-                    raise TamperedChunk(cid, "Get-Chunk")
+            if verify and not check_chunk(st, cid_of, raw, cid):
+                raise TamperedChunk(cid, "Get-Chunk")
             out.append(raw)
         return out
 
@@ -398,10 +390,15 @@ class SegmentBackend(BackendBase):
         GC-sweep output to the compactor (sealed segments past the dead
         threshold are rewritten)."""
         if self._wf is not None:
-            self._wf.flush()
-            os.fsync(self._wf.fileno())
+            self._fsync()
         if self.auto_compact:
             self.maybe_compact()
+
+    def _fsync(self) -> None:
+        """The active segment's buffered appends to disk, fsynced."""
+        with obs_trace("segment.fsync"):
+            self._wf.flush()
+            os.fsync(self._wf.fileno())
 
     # -------------------------------------------------------- compaction
     def _tomb_needed(self, gen: int, cid: bytes) -> bool:

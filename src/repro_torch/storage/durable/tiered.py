@@ -29,9 +29,10 @@ from __future__ import annotations
 from collections import OrderedDict
 
 from ...obs import emit as obs_emit
+from ...obs import trace as obs_trace
 from ..backend import (BackendBase, StorageBackend, TamperedChunk,
-                       delete_via, overlay_get_many, overlay_has_many,
-                       resolve_cids)
+                       check_chunk, delete_via, overlay_get_many,
+                       overlay_has_many, resolve_cids)
 
 _cid_of = None
 
@@ -77,9 +78,7 @@ class TieredBackend(BackendBase):
         if self.verify and provided:
             cid_of = _chunk_cid_of()
             for i in provided:
-                st.verifies += 1
-                if out[i] != cid_of(raws[i]):
-                    st.verify_failures += 1
+                if not check_chunk(st, cid_of, raws[i], out[i]):
                     raise TamperedChunk(out[i], "Put-Chunk")
         st.put_batches += 1
         # one batched existence probe against the cold tier for dedup
@@ -160,11 +159,8 @@ class TieredBackend(BackendBase):
             self._hot.move_to_end(cid)
             st.cache_hits += 1
             st.tier_hits += 1
-            if verify:
-                st.verifies += 1
-                if cid_of(self._hot[cid]) != cid:
-                    st.verify_failures += 1
-                    raise TamperedChunk(cid, "hot-tier hit")
+            if verify and not check_chunk(st, cid_of, self._hot[cid], cid):
+                raise TamperedChunk(cid, "hot-tier hit")
 
         def fetch(miss):
             st.tier_misses += len(miss)
@@ -219,19 +215,21 @@ class TieredBackend(BackendBase):
     def flush(self) -> None:
         """Durability point: demote every dirty chunk in one batch, then
         flush the cold tier (fsync + GC-fed compaction below)."""
-        if self._dirty:
-            cids = list(self._dirty)
-            raws = [self._hot[c] for c in cids]
-            self.stats.tier_demotions += len(cids)
-            self.cold.put_many(raws, cids)
-            self._dirty.clear()
-            obs_emit("tier.demote", chunks=len(cids),
-                     bytes=sum(map(len, raws)), cause="flush")
-        n0 = self.cold.stats.compactions
-        b0 = self.cold.stats.compacted_bytes
-        self.cold.flush()
-        self.stats.compactions += self.cold.stats.compactions - n0
-        self.stats.compacted_bytes += self.cold.stats.compacted_bytes - b0
+        with obs_trace("tier.flush"):
+            if self._dirty:
+                cids = list(self._dirty)
+                raws = [self._hot[c] for c in cids]
+                self.stats.tier_demotions += len(cids)
+                self.cold.put_many(raws, cids)
+                self._dirty.clear()
+                obs_emit("tier.demote", chunks=len(cids),
+                         bytes=sum(map(len, raws)), cause="flush")
+            n0 = self.cold.stats.compactions
+            b0 = self.cold.stats.compacted_bytes
+            self.cold.flush()
+            self.stats.compactions += self.cold.stats.compactions - n0
+            self.stats.compacted_bytes += (self.cold.stats.compacted_bytes
+                                           - b0)
 
     def close(self) -> None:
         self.flush()

@@ -15,7 +15,7 @@ import struct
 
 from ..obs import emit as obs_emit
 from .backend import (BackendBase, ChunkMissing, TamperedChunk,
-                      resolve_cids)
+                      check_chunk, resolve_cids)
 from .durable.fsutil import replace_durably
 
 _LEN = struct.Struct("<I")
@@ -68,9 +68,7 @@ class MemoryBackend(BackendBase):
             # would just re-hash the same bytes
             cid_of = _chunk_cid_of()
             for i in provided:
-                self.stats.verifies += 1
-                if out[i] != cid_of(raws[i]):
-                    self.stats.verify_failures += 1
+                if not check_chunk(self.stats, cid_of, raws[i], out[i]):
                     raise TamperedChunk(out[i], "Put-Chunk")
         st = self.stats
         st.put_batches += 1
@@ -97,11 +95,8 @@ class MemoryBackend(BackendBase):
             raw = self._data.get(cid)
             if raw is None:
                 raise ChunkMissing(cid)
-            if self.verify:
-                st.verifies += 1
-                if cid_of(raw) != cid:
-                    st.verify_failures += 1
-                    raise TamperedChunk(cid, "Get-Chunk")
+            if self.verify and not check_chunk(st, cid_of, raw, cid):
+                raise TamperedChunk(cid, "Get-Chunk")
             out.append(raw)
         return out
 
@@ -165,11 +160,8 @@ class MemoryBackend(BackendBase):
                 raw = f.read(ln)
                 if len(raw) < ln:
                     break  # torn tail write: recover prefix
-                if self.verify:
-                    st.verifies += 1
-                    if cid_of(raw) != cid:
-                        st.verify_failures += 1
-                        raise TamperedChunk(cid, "log replay")
+                if self.verify and not check_chunk(st, cid_of, raw, cid):
+                    raise TamperedChunk(cid, "log replay")
                 st.puts += 1
                 st.logical_bytes += ln
                 if cid not in self._data:

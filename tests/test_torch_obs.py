@@ -9,6 +9,8 @@ table, so per-instance histogram caches inside stores created before
 the reset would record into orphaned instruments.
 """
 import json
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -420,3 +422,253 @@ def test_store_stats_as_dict_and_merge():
     # exhaustive export: every dataclass field appears in the dict
     from dataclasses import fields
     assert {f.name for f in fields(StoreStats)} <= set(d)
+
+
+# ------------------------------------- the span ring and the span clock
+
+def test_span_ring_bound_and_drop_counter(monkeypatch):
+    import sys
+    tr = sys.modules["repro_torch.obs.trace"]
+    ring = tr.SpanRing(capacity=4)
+    monkeypatch.setattr(tr, "SPANS", ring)
+    done = []
+    for i in range(10):
+        with obs.trace("tick", i=i) as sp:
+            pass
+        done.append(sp)
+    assert ring.capacity == 4 and len(ring) == 4
+    assert [sp.attrs["i"] for sp in ring.spans()] == [6, 7, 8, 9]
+    assert ring.dropped_end_ns == done[5].end_ns
+    assert obs.counter("spans_dropped_total").value == 6
+    assert [sp.attrs["i"] for sp in ring.finished_since(done[7].end_ns)] \
+        == [9, 8]
+    ring.clear()
+    assert (len(ring), ring.dropped_end_ns) == (0, 0)
+
+
+def test_ring_keeps_every_finished_span_and_recent_spans_the_roots():
+    for i in range(3):
+        with obs.trace("root", i=i):
+            for j in range(2):
+                with obs.trace("kid", j=j):
+                    with obs.trace("grandkid"):
+                        pass
+    names = [sp.name for sp in obs.SPANS.spans()]
+    # in the order they finished: children before their parents
+    assert names == (["grandkid", "kid"] * 2 + ["root"]) * 3
+    roots = obs.recent_spans()
+    assert [r.attrs["i"] for r in roots] == [0, 1, 2]
+    assert all(r.parent_id == 0 for r in roots)
+    by_id = {sp.span_id: sp for sp in obs.SPANS.spans()}
+    for sp in obs.SPANS.spans():
+        assert sp.start_ns <= sp.end_ns
+        if sp.parent_id:
+            parent = by_id[sp.parent_id]
+            assert parent.start_ns <= sp.start_ns <= sp.end_ns \
+                <= parent.end_ns
+
+
+def test_span_ring_reads_while_other_threads_finish_spans():
+    """The runtime's dispatchers finish spans on threads of their own
+    while another reads the ring: a read never sees it change under it."""
+    stop = threading.Event()
+
+    def finisher():
+        while not stop.is_set():
+            with obs.trace("store.put"):
+                pass
+
+    threads = [threading.Thread(target=finisher) for _ in range(4)]
+    for t in threads:
+        t.start()
+    reads = 0
+    try:
+        deadline = time.perf_counter() + 1.0
+        while time.perf_counter() < deadline:
+            assert all(sp.parent_id == 0 for sp in obs.recent_spans())
+            newest = obs.SPANS.finished_since(0)
+            assert all(a.span_id != b.span_id
+                       for a, b in zip(newest, newest[1:]))
+            reads += 1
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    assert reads > 0 and len(obs.SPANS) == obs.SPANS.capacity
+
+
+def test_snapshot_exports_the_newest_roots_only():
+    for i in range(40):
+        with obs.trace("op", i=i):
+            pass
+    spans = obs.snapshot()["spans"]
+    assert [s["attrs"]["i"] for s in spans] == list(range(8, 40))
+
+
+def test_a_span_maps_inside_two_unix_clock_reads():
+    import time
+    w0 = time.time_ns()
+    time.sleep(0.001)
+    with obs.trace("mapped") as sp:
+        pass
+    time.sleep(0.001)
+    w1 = time.time_ns()
+    assert w0 < obs.unix_ns(sp.start_ns) <= obs.unix_ns(sp.end_ns) < w1
+    # events and snapshots share the span clock
+    t0 = obs.now_ns()
+    obs.emit("clock.probe")
+    snap = obs.snapshot()
+    ev = obs.EVENTS.events("clock.probe")[-1]
+    assert t0 / 1e3 <= ev["mono_us"] <= snap["now_us"] <= obs.now_ns() / 1e3
+
+
+def _durable_engine(tmp_path):
+    from repro_torch.core import ForkBase
+    return ForkBase(durable_root=str(tmp_path), verify_get=True,
+                    hot_bytes=256 << 10, segment_bytes=64 << 10)
+
+
+def _tree(root):
+    return {sp.name: [c.name for c in sp.children] for sp in root.walk()}
+
+
+def test_spliced_blob_put_gives_the_write_path_span_tree(tmp_path,
+                                                         monkeypatch):
+    from repro_torch.core import postree
+    rng = np.random.default_rng(5)
+    db = _durable_engine(tmp_path)
+    data = rng.bytes(96 << 10)
+    db.put("doc", FBlob(data))
+    db.sync()
+    handed = []
+    bitmap = postree.boundary_bitmap
+
+    def counting(stream, params):
+        handed.append(len(stream))
+        return bitmap(stream, params)
+
+    monkeypatch.setattr(postree, "boundary_bitmap", counting)
+    obs.SPANS.clear()
+    st = db.store.stats
+    v0, ns0 = st.verifies, st.verify_ns
+    blob = db.get("doc").blob()
+    edits = [(int(p), rng.bytes(40)) for p in (1000, 30_000, 70_000)]
+    for pos, new in edits:
+        blob.replace(pos, len(new), new)
+    db.put("doc", blob)
+    db.sync()
+    assert db.get("doc").blob().read() == _spliced(data, edits)
+
+    names = [sp.name for sp in obs.recent_spans()]
+    assert names == ["tree.load", "engine.put", "engine.sync",
+                     "tree.load", "tree.read"]
+    put = obs.recent_spans()[1]
+    tree = _tree(put)
+    assert tree["engine.put"] == ["tree.splice", "buffer.flush"]
+    splice = put.children[0]
+    assert [c.name for c in splice.children] == [
+        "splice.gather", "splice.apply", "splice.chunk", "splice.encode"
+    ] * splice.attrs["attempts"] + ["tree.index", "buffer.flush"]
+    assert tree["buffer.flush"] == ["store.put"]
+    assert splice.attrs["edits"] == len(edits)
+    assert splice.attrs["rechunked"] == sum(handed) > 0
+    assert splice.attrs["leaves_read"] >= 1
+    assert splice.attrs["new_leaves"] >= 1
+    sync = obs.recent_spans()[2]
+    assert [c.name for c in sync.children] == ["tier.flush"]
+    assert "segment.fsync" in [sp.name for sp in sync.walk()]
+    # child time never exceeds the parent's, at every node
+    for sp in put.walk():
+        assert sp.child_seconds() <= sp.duration_s * (1 + 1e-9)
+    assert st.verifies > v0 and st.verify_ns > ns0
+    db.store.close()
+
+
+def _spliced(data: bytes, edits) -> bytes:
+    out = bytearray(data)
+    for pos, new in edits:
+        out[pos:pos + len(new)] = new
+    return bytes(out)
+
+
+def _check_sites(tmp_path):
+    """Each site that counts a chunk check: (name, the StoreStats it
+    counts in, an action that checks)."""
+    from repro_torch.core.fobject import load_fobject, make_fobject
+    from repro_torch.storage import LRUCacheBackend
+    from repro_torch.storage.durable import TieredBackend
+    rng = np.random.default_rng(7)
+    raws = [rng.bytes(int(n)) for n in rng.integers(100, 3000, 6)]
+    from repro_torch.core.chunk import cid_of
+    cids = [cid_of(r) for r in raws]
+
+    mem = MemoryBackend(verify=True)
+    mem.put_many(raws)
+    log = str(tmp_path / "chunks.log")
+    logged = MemoryBackend(log_path=log, verify=True)
+    logged.put_many(raws)
+    logged.flush()
+    cache = LRUCacheBackend(MemoryBackend(), verify=True)
+    cache.put_many(raws)
+    seg = SegmentBackend(str(tmp_path / "seg"), verify=True)
+    seg.put_many(raws)
+    seg.flush()
+    hot = TieredBackend(MemoryBackend(), verify=True)
+    hot.put_many(raws)
+    meta = MemoryBackend()
+    uid = make_fobject(meta, 7, b"k", b"v", ()).uid
+    replay = {}
+
+    def reopen_log():
+        replay["log"] = MemoryBackend(log_path=log, verify=True)
+
+    def reopen_seg():
+        replay["seg"] = SegmentBackend(str(tmp_path / "seg"), verify=True)
+
+    return [
+        ("memory.put", lambda: mem.stats,
+         lambda: mem.put_many(raws, cids)),
+        ("memory.get", lambda: mem.stats, lambda: mem.get_many(cids)),
+        ("memory.replay", lambda: replay.get("log", logged).stats
+         if "log" in replay else StoreStats(), reopen_log),
+        ("cache.hit", lambda: cache.stats, lambda: cache.get_many(cids)),
+        ("segment.put", lambda: seg.stats, lambda: seg.put_many(raws, cids)),
+        ("segment.get", lambda: seg.stats, lambda: seg.get_many(cids)),
+        ("segment.replay", lambda: replay["seg"].stats
+         if "seg" in replay else StoreStats(), reopen_seg),
+        ("tiered.put", lambda: hot.stats, lambda: hot.put_many(raws, cids)),
+        ("tiered.hit", lambda: hot.stats, lambda: hot.get_many(cids)),
+        ("fobject.meta", lambda: meta.stats,
+         lambda: load_fobject(meta, uid, verify=True)),
+        ("unverified.get", lambda: MemoryBackend().stats, lambda: None),
+    ]
+
+
+CHECK_SITES = ["memory.put", "memory.get", "memory.replay", "cache.hit",
+               "segment.put", "segment.get", "segment.replay", "tiered.put",
+               "tiered.hit", "fobject.meta"]
+
+
+@pytest.mark.parametrize("enabled", [True, False], ids=["obs_on", "obs_off"])
+@pytest.mark.parametrize("site", CHECK_SITES)
+def test_verify_ns_moves_exactly_when_verifies_does(tmp_path, site, enabled):
+    stats_of, act = {n: (s, a) for n, s, a in _check_sites(tmp_path)}[site]
+    before = (stats_of().verifies, stats_of().verify_ns)
+    (obs.enable if enabled else obs.disable)()
+    try:
+        act()
+    finally:
+        obs.enable()
+    after = (stats_of().verifies, stats_of().verify_ns)
+    assert after[0] > before[0], site
+    if enabled:
+        assert after[1] > before[1], site
+    else:
+        assert after[1] == before[1], site
+
+
+def test_no_check_no_verify_ns():
+    store = MemoryBackend()
+    cids = store.put_many([b"x" * 100, b"y" * 100])
+    store.get_many(cids)
+    assert store.stats.verifies == 0 and store.stats.verify_ns == 0

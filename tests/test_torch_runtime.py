@@ -12,6 +12,7 @@ dangles, the master index never lies, and GC after the dust settles
 sweeps without eating a live chunk.
 """
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -165,12 +166,57 @@ def test_admission_reads_fresh_slow_spans(rng):
     with obs.trace("store.put", backend="routing") as sp:
         pass
     # forge the duration (we cannot sleep 10ms+ in a unit test); the
-    # span is already in recent_spans with a fresh monotonic start
-    sp.start_s = obs.monotonic()
-    sp.duration_s = 0.5
+    # span is already in the ring with a fresh start on the span clock
+    sp.start_ns = obs.now_ns()
+    sp.end_ns = sp.start_ns + 500_000_000
     assert rt.admission.update() is True
     rt.admission.update()
     assert rt.admission.congested is False   # span is no longer fresh
+
+
+def test_dispatchers_survive_spans_finishing_on_other_threads(rng):
+    """Every dispatcher scans the span ring for admission while the
+    others finish ``store.put``/``engine.put`` spans into it, and a
+    reader exports snapshots meanwhile: no dispatcher dies, every future
+    resolves, and every snapshot is taken."""
+    cl = Cluster(4)
+    rt = cl.runtime(RuntimeConfig(queue_depth=4096)).start()
+    deadline = time.perf_counter() + 2.0
+    done, errors = [], []
+
+    def writer(w):
+        r = np.random.default_rng(2000 + w)
+        i = 0
+        while time.perf_counter() < deadline:
+            try:
+                f = rt.submit_put(f"s{w}-{i % 4}", FBlob(r.bytes(512)))
+                done.append(f.result(timeout=10))
+            except Exception as e:       # noqa: BLE001
+                errors.append(e)
+                return
+            i += 1
+
+    def reader():
+        while time.perf_counter() < deadline:
+            try:
+                snaps.append(len(obs.snapshot()["spans"]))
+            except Exception as e:       # noqa: BLE001
+                errors.append(e)
+                return
+
+    snaps = []
+    threads = [threading.Thread(target=writer, args=(w,)) for w in range(6)]
+    threads.append(threading.Thread(target=reader))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    try:
+        assert not errors, errors[:3]
+        assert all(t.is_alive() for t in rt._threads)
+        assert len(done) > 6 and snaps
+    finally:
+        rt.stop()
 
 
 # ------------------------------------------------------- typed routing miss
