@@ -85,8 +85,8 @@ def _hits(bitmap: torch.Tensor) -> np.ndarray:
     return torch.nonzero(bitmap).flatten().cpu().numpy() + 1
 
 
-def cut_bytes(data: np.ndarray, params: ChunkParams = DEFAULT_PARAMS,
-              bitmap: torch.Tensor | None = None) -> list[int]:
+def cut_bytes(data: np.ndarray,
+              params: ChunkParams = DEFAULT_PARAMS) -> list[int]:
     """Exclusive cut offsets for a raw byte stream (Blob).
 
     Returns offsets c_1 < c_2 < ... <= n such that chunks are
@@ -96,10 +96,26 @@ def cut_bytes(data: np.ndarray, params: ChunkParams = DEFAULT_PARAMS,
     n = int(data.shape[0])
     if n == 0:
         return []
-    if bitmap is None:
-        bitmap = boundary_bitmap(data, params)
+    return cut_segments(boundary_bitmap(data, params), [(0, n)], params)[0]
+
+
+def cut_segments(bitmap: torch.Tensor, segments: Sequence[tuple[int, int]],
+                 params: ChunkParams = DEFAULT_PARAMS) -> list[list[int]]:
+    """Cuts of several segments of one stream from the stream's one
+    bitmap: for each (lo, hi), the cuts of ``stream[lo:hi]`` whose
+    patterns are ``bitmap[lo:hi]``.  The hits cross to the host once for
+    all of them."""
     hits = _hits(bitmap)  # cut AFTER the pattern byte
-    return _apply_max_size(hits.tolist(), n, params.max_size)
+    out: list[list[int]] = []
+    for lo, hi in segments:
+        if hi <= lo:
+            out.append([])
+            continue
+        a = int(np.searchsorted(hits, lo + 1, side="left"))
+        b = int(np.searchsorted(hits, hi, side="right"))
+        out.append(_apply_max_size((hits[a:b] - lo).tolist(), hi - lo,
+                                   params.max_size))
+    return out
 
 
 def _apply_max_size(hits: list[int], end: int, max_size: int) -> list[int]:

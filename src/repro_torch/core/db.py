@@ -31,6 +31,9 @@ from .postree import POSTree
 from .types import (CHUNKABLE_CLASSES, FBlob, FInt, FList, FMap, FSet,
                     FString, FTuple, PRIMITIVE_CLASSES)
 
+#: Blob roots an engine remembers as cut by its params (oldest dropped).
+CUT_ROOTS = 1 << 16
+
 
 class TypeNotMatch(Exception):
     pass
@@ -54,8 +57,9 @@ class ValueHandle:
     def _chunkable(self, kind: int):
         if self.obj.type != kind:
             raise TypeNotMatch(self.obj.type_name())
-        tree = POSTree.from_root(self.db.store, kind, self.obj.data,
-                                 self.db.params)
+        tree = POSTree.from_root(
+            self.db.store, kind, self.obj.data, self.db.params,
+            cut_by_params=self.obj.data in self.db._cut_roots)
         return CHUNKABLE_CLASSES[kind].from_tree(tree)
 
     def blob(self) -> FBlob:
@@ -113,6 +117,10 @@ class ForkBase:
         self._durable_root = durable_root
         self.store = store if store is not None else ChunkStore()
         self.params = params
+        # roots of the blobs this engine committed whose leaves ``params``
+        # cut (the newest CUT_ROOTS): a blob read back from one splices
+        # each cluster of its edits on its own (POSTree.splice_bytes)
+        self._cut_roots: dict[bytes, None] = {}
         # verify-on-get: every Get re-hashes the meta chunk against its
         # uid (per-call ``verify=`` overrides; checks count in StoreStats)
         self.verify_get = verify_get
@@ -166,6 +174,13 @@ class ForkBase:
             store = self.store
         if hasattr(value, "commit"):          # chunkable handle
             root = value.commit(store)
+            tree = value.tree
+            if (value.TYPE == FBlob.TYPE and tree.cut_by_params
+                    and tree.params == self.params):
+                self._cut_roots.pop(root, None)
+                self._cut_roots[root] = None
+                if len(self._cut_roots) > CUT_ROOTS:
+                    del self._cut_roots[next(iter(self._cut_roots))]
             return value.TYPE, root
         if hasattr(value, "encode"):          # primitive
             return value.TYPE, value.encode()

@@ -29,7 +29,7 @@ import numpy as np
 from . import chunk as ck
 from .chunk import Entry
 from .chunker import (ChunkParams, DEFAULT_PARAMS, boundary_bitmap,
-                      cut_bytes, cut_elements, index_cuts)
+                      cut_bytes, cut_elements, cut_segments, index_cuts)
 from .. import obs
 from ..errors import InvariantViolation
 from ..storage import WriteBuffer
@@ -62,13 +62,123 @@ def child_by_key(entries: list[Entry], key: bytes) -> int:
     return min(bisect.bisect_left(ks, key), len(entries) - 1)
 
 
+# ------------------------------------------------------ blob splice clusters
+# A blob splice re-chunks each locality cluster of its edits on its own,
+# in the old leaf level's coordinates (POSTree.splice_bytes).  That gives
+# the tree a whole rebuild gives when the old leaves were cut with the same
+# params: a cluster's window ends before the next cluster's first leaf,
+# and it resyncs on an old boundary at least a rolling window past its
+# last edit, so the next cluster starts on a cut of the new stream and
+# its warm-up bytes are unedited.  Leaves cut with other params (a blob
+# built at the default params inside an engine with others) are not what
+# the splice's params cut between two clusters: there the edits form one
+# cluster, from the first edit to the last, and the result is the one
+# re-chunking that whole span gives.
+
+class _Cluster:
+    """Edits (sorted, old coordinates) re-chunked as one span: from leaf
+    j0, the leaf of its first edit, after the warm-up bytes before it, to
+    the first old leaf boundary its cuts resync at.  ``resume`` is that
+    old leaf's index once found (None while open); ``cuts`` and ``buf``
+    then give its new leaves."""
+
+    def __init__(self, edits: list, j0: int, jE: int, base: int):
+        self.edits = list(edits)
+        self.j0, self.jE = j0, jE           # leaves of first and last edit
+        self.base = base                    # leaf j0's offset
+        self.last_end = max(e[1] for e in edits)
+        self.grow = max(2, jE - j0 + 1)     # leaves read past jE
+        self.warm: bytes | None = None      # window-1 bytes before leaf j0
+        self.resume: int | None = None
+        # the attempt's last leaf read, the window's bytes with the edits
+        # applied and their change in length
+        self.jx = j0
+        self.buf, self.delta = b"", 0
+        # once closed: the new leaves' ends in ``buf``, chunks and sizes
+        self.cuts: list[int] = []
+        self.raws: list[bytes] = []
+        self.sizes: list[int] = []
+
+    def reach(self, last: int) -> int:
+        """Last leaf of the next attempt's window."""
+        return min(self.jE + self.grow, last)
+
+    def absorb(self, other: "_Cluster") -> None:
+        self.edits += other.edits
+        self.jE = max(self.jE, other.jE)
+        self.last_end = max(self.last_end, other.last_end)
+        self.grow = max(self.grow, other.grow, self.jE - self.j0 + 1)
+        self.resume = None
+
+    def apply(self, old: bytes) -> None:
+        """The bytes of leaves j0 to jx with the edits applied in one
+        forward pass."""
+        old = memoryview(old)
+        parts: list = []
+        pos = 0
+        for s, e, rep in self.edits:
+            parts += (old[pos:s - self.base], rep)
+            pos = e - self.base
+        parts.append(old[pos:])
+        self.buf = b"".join(parts)
+        self.delta = len(self.buf) - len(old)
+
+    def resync(self, cuts: list[int], cum: np.ndarray, last: int,
+               window: int) -> None:
+        """Close at the first new cut that lands on an old leaf boundary
+        once the rolling window has slid past the last edit (or at the
+        stream's end); else double the window for the next attempt."""
+        at_end = self.jx == last
+        c = np.asarray(cuts if at_end else cuts[:-1], dtype=np.int64)
+        old_off = c - self.delta + self.base
+        idx = np.minimum(np.searchsorted(cum, old_off), len(cum) - 1)
+        stable_from = (self.last_end - self.base) + self.delta + window
+        hit = np.flatnonzero((c >= stable_from) & (old_off >= self.last_end)
+                             & (cum[idx] == old_off))
+        if hit.size:
+            k = int(hit[0])
+            self.cuts, self.resume = cuts[:k + 1], int(idx[k]) + 1
+        elif at_end:
+            self.cuts, self.resume = cuts, last + 1
+        else:
+            self.grow *= 2
+
+    def encode(self) -> None:
+        self.raws, self.sizes = [], []
+        start = 0
+        for c in self.cuts:
+            self.raws.append(ck.encode_chunk(ck.BLOB, self.buf[start:c]))
+            self.sizes.append(c - start)
+            start = c
+
+
+def _merge_reaching(clusters: list[_Cluster], last: int) -> list[_Cluster]:
+    """Merge each open cluster with the clusters after it that its next
+    window reaches: a window that holds another cluster's first leaf has
+    to carry that cluster's edits, and resync past them."""
+    out: list[_Cluster] = []
+    for cl in clusters:
+        prev = out[-1] if out else None
+        if (prev is not None and prev.resume is None
+                and prev.reach(last) >= cl.j0):
+            prev.absorb(cl)
+        else:
+            out.append(cl)
+    return out
+
+
 class POSTree:
     def __init__(self, store, kind: int, levels: list[list[Entry]],
-                 params: ChunkParams = DEFAULT_PARAMS):
+                 params: ChunkParams = DEFAULT_PARAMS, *,
+                 cut_by_params: bool = False):
         self.store = store
         self.kind = kind
         self.levels = levels
         self.params = params
+        # the leaf level is known to be what cutting the whole stream with
+        # ``params`` gives (a build, or a root its engine registered), so
+        # a blob splice may re-chunk each cluster of edits on its own
+        self.cut_by_params = cut_by_params
         self._buf: WriteBuffer | None = None      # active commit batch
         self._leaf_cache: dict[int, list] = {}
         self._cum: np.ndarray | None = None       # leaf cumulative counts
@@ -149,12 +259,13 @@ class POSTree:
     def _empty(cls, store, kind: int, params: ChunkParams) -> "POSTree":
         raw = ck.encode_chunk(kind, b"")
         key = b"" if kind in SORTED_KINDS else None
-        return cls(store, kind, [[Entry(store.put(raw), 0, key)]], params)
+        return cls(store, kind, [[Entry(store.put(raw), 0, key)]], params,
+                   cut_by_params=True)
 
     @classmethod
     def _from_leaves(cls, store, kind, leaves, params,
                      buf: WriteBuffer | None = None) -> "POSTree":
-        tree = cls(store, kind, [leaves], params)
+        tree = cls(store, kind, [leaves], params, cut_by_params=True)
         tree._buf = buf if buf is not None else WriteBuffer(store)
         tree._rebuild_index()
         tree._commit_batch()
@@ -162,8 +273,10 @@ class POSTree:
 
     @classmethod
     def from_root(cls, store, kind: int, root_cid: bytes,
-                  params: ChunkParams = DEFAULT_PARAMS) -> "POSTree":
-        """Materialize the index (not the leaves) from a stored root."""
+                  params: ChunkParams = DEFAULT_PARAMS, *,
+                  cut_by_params: bool = False) -> "POSTree":
+        """Materialize the index (not the leaves) from a stored root;
+        ``cut_by_params`` when the caller knows ``params`` cut its leaves."""
         with obs.trace("tree.load"):
             root_raw = store.get(root_cid)
             raw = ck.chunk_payload(root_raw)
@@ -191,10 +304,12 @@ class POSTree:
                 root_key = levels_desc[0][-1].key
                 levels = list(reversed(levels_desc))
                 levels.append([Entry(root_cid, root_count, root_key)])
-                return cls(store, kind, levels, params)
+                return cls(store, kind, levels, params,
+                           cut_by_params=cut_by_params)
             # root is a single leaf
             count, key = cls._leaf_stats(kind, raw)
-            return cls(store, kind, [[Entry(root_cid, count, key)]], params)
+            return cls(store, kind, [[Entry(root_cid, count, key)]], params,
+                       cut_by_params=cut_by_params)
 
     @staticmethod
     def _leaf_stats(kind: int, payload: bytes) -> tuple[int, bytes | None]:
@@ -409,118 +524,160 @@ class POSTree:
                 self.levels.append(nxt)
                 entries = nxt
 
-    def _warmup_bytes(self, j0: int) -> tuple[bytes, int]:
+    def _warmup_bytes(self, j0: int, payload=None) -> tuple[bytes, int]:
         """Last window-1 bytes of the stream before leaf j0, and the
-        number of leaves read for them."""
+        number of leaves read for them (by ``payload``, a leaf index to
+        its payload; ``_leaf_payload`` by default)."""
+        payload = payload or self._leaf_payload
         need = self.params.window - 1
         parts: list[bytes] = []
         got = 0
         j = j0 - 1
         while j >= 0 and got < need:
-            p = self._leaf_payload(j)
+            p = payload(j)
             take = p[-(need - got):]
             parts.append(take)
             got += len(take)
             j -= 1
         return b"".join(reversed(parts)), len(parts)
 
+    def _payloads_of(self, clusters: list[_Cluster],
+                     cum: np.ndarray) -> dict[int, bytes]:
+        """The payloads of the leaves the clusters' next attempt reads
+        (the warm-up leaves of each without its warm-up bytes yet, and j0
+        to jx), by leaf index, from one ``get_many``."""
+        need: set[int] = set()
+        for cl in clusters:
+            lo = cl.j0
+            if cl.warm is None:
+                lo = int(np.searchsorted(
+                    cum, max(0, cl.base - (self.params.window - 1)),
+                    side="right"))
+            need.update(range(min(lo, cl.j0), cl.jx + 1))
+        js = sorted(need)
+        raws = self._buf.get_many([self.levels[0][j].cid for j in js])
+        return dict(zip(js, map(ck.chunk_payload, raws)))
+
     def splice_bytes(self, edits: list[tuple[int, int, bytes]],
                      sink=None) -> None:
         """Blob: apply [(start, end, replacement)] byte splices (sorted,
-        non-overlapping) and incrementally re-chunk.  One ``tree.splice``
-        span, whose attributes count the edits, the leaves read, the
-        bytes handed to the bitmap over every attempt (``rechunked``), the
-        leaves written and the attempts; its phases are the spans
-        ``splice.gather``, ``splice.apply``, ``splice.chunk``,
-        ``splice.encode`` and ``tree.index``."""
+        non-overlapping) and incrementally re-chunk.
+
+        The edits fall into locality clusters.  Each cluster is re-chunked
+        from its first leaf to the first old leaf boundary where its cuts
+        resync, in the old leaf level's coordinates; a cluster whose window
+        reaches the next cluster's first leaf merges with it, and every
+        edit is in one cluster unless ``cut_by_params``.  A round reads
+        every open cluster's leaves in one checked ``get_many`` (a tree
+        not ``cut_by_params``: leaf by leaf, in the reference's order, so
+        a tiered store demotes as under the reference), hands the bitmap
+        every open cluster's bytes in one stream, and the new leaves of
+        all clusters are put in one batch, so 100 edits
+        scattered over a large blob re-chunk ~100 small spans, not the
+        whole range between the first and the last edit.
+
+        One ``tree.splice`` span, whose attributes count the edits, the
+        clusters re-chunked, the leaves read, the bytes handed to the
+        bitmap (``rechunked``), each summed over every round, the leaves
+        written and the rounds (``attempts``);
+        each round's phases are the spans ``splice.gather``,
+        ``splice.apply``, ``splice.chunk`` and ``splice.encode``, then
+        ``tree.index``."""
         if self.kind != ck.BLOB:
             raise InvariantViolation(f"splice_bytes on non-blob kind {self.kind}")
         if not edits:
             return
+        edits = sorted(edits)
         with obs.trace("tree.splice", edits=len(edits)) as sp:
             self._open_batch(sink)
             leaves = self.levels[0]
+            last = len(leaves) - 1
             cum = self._cum_counts()
-            first = min(e[0] for e in edits)
-            j0 = min(int(np.searchsorted(cum, first, side="right")),
-                     len(leaves) - 1)
-            base = int(cum[j0 - 1]) if j0 > 0 else 0
-            last_end = max(e[1] for e in edits)
-            jE = min(int(np.searchsorted(cum, max(last_end - 1, first),
-                                         side="right")), len(leaves) - 1)
-            grow = max(2, jE - j0 + 1)
-            counts = {"leaves_read": 0, "rechunked": 0, "new_leaves": 0,
-                      "attempts": 0}
-            warm = None
+            starts = np.array([e[0] for e in edits], dtype=np.int64)
+            ends = np.array([e[1] for e in edits], dtype=np.int64)
+            j_first = np.minimum(np.searchsorted(cum, starts, side="right"),
+                                 last)
+            j_last = np.minimum(np.searchsorted(
+                cum, np.maximum(ends - 1, starts), side="right"), last)
+            bases = np.where(j_first > 0, cum[j_first - 1], 0)
+            if self.cut_by_params:
+                clusters = [_Cluster([e], int(a), int(b), int(o))
+                            for e, a, b, o in zip(edits, j_first, j_last,
+                                                  bases)]
+            else:
+                # one span, from the leaf of the first edit to that of the
+                # last end (or of the first start, if later)
+                jE = min(int(np.searchsorted(
+                    cum, max(int(ends.max()) - 1, int(starts[0])),
+                    side="right")), last)
+                clusters = [_Cluster(edits, int(j_first[0]), jE,
+                                     int(bases[0]))]
+            counts = {"clusters": 0, "leaves_read": 0, "rechunked": 0,
+                      "new_leaves": 0, "attempts": 0}
+            window = self.params.window
             while True:
                 counts["attempts"] += 1
-                jx = min(jE + grow, len(leaves) - 1)
+                clusters = _merge_reaching(clusters, last)
+                opened = [cl for cl in clusters if cl.resume is None]
                 with obs.trace("splice.gather"):
-                    if warm is None:
-                        warm, n = self._warmup_bytes(j0)
-                        counts["leaves_read"] += n
-                    old = np.concatenate([
-                        np.frombuffer(self._leaf_payload(j), dtype=np.uint8)
-                        for j in range(j0, jx + 1)])
-                    counts["leaves_read"] += jx + 1 - j0
+                    for cl in opened:
+                        cl.jx = cl.reach(last)
+                    payload = self._leaf_payload
+                    if self.cut_by_params:
+                        # every open cluster's leaves in one checked batch
+                        # (else leaf by leaf, as the reference reads)
+                        got = self._payloads_of(opened, cum)
+                        payload = (lambda j: got[j] if j in got
+                                   else self._leaf_payload(j))
+                    olds = []
+                    for cl in opened:
+                        if cl.warm is None:
+                            cl.warm, n = self._warmup_bytes(cl.j0, payload)
+                            counts["leaves_read"] += n
+                        olds.append(b"".join(map(payload,
+                                                 range(cl.j0, cl.jx + 1))))
+                        counts["leaves_read"] += cl.jx + 1 - cl.j0
                 with obs.trace("splice.apply"):
-                    # apply edits in local coordinates, back to front
-                    buf = old
-                    for s, e, rep in sorted(edits, reverse=True):
-                        ls, le = s - base, e - base
-                        buf = np.concatenate([
-                            buf[:ls], np.frombuffer(rep, dtype=np.uint8),
-                            buf[le:]])
-                delta = len(buf) - len(old)
-                at_stream_end = jx == len(leaves) - 1
+                    for cl, old in zip(opened, olds):
+                        cl.apply(old)
                 with obs.trace("splice.chunk"):
-                    stream = np.concatenate(
-                        [np.frombuffer(warm, dtype=np.uint8), buf])
+                    parts, segments, at = [], [], 0
+                    for cl in opened:
+                        parts += (cl.warm, cl.buf)
+                        lo = at + len(cl.warm)
+                        at = lo + len(cl.buf)
+                        segments.append((lo, at))
+                    stream = np.frombuffer(b"".join(parts), dtype=np.uint8)
                     counts["rechunked"] += len(stream)
-                    bitmap = boundary_bitmap(stream, self.params)[len(warm):]
-                    cuts = cut_bytes(buf, self.params, bitmap=bitmap)
-                # resync: new cut -> old offset must hit an old leaf boundary
-                stable_from = (last_end - base) + delta + self.params.window
-                splice_at = None   # (cut_idx, old_leaf_index)
-                cumset = {int(c): i + 1 for i, c in enumerate(cum)}
-                for ci, c in enumerate(cuts if at_stream_end
-                                       else cuts[:-1]):
-                    if c < stable_from:
-                        continue
-                    old_off = c - delta + base
-                    if old_off in cumset and old_off >= last_end:
-                        splice_at = (ci, cumset[old_off])
-                        break
-                if splice_at is None and not at_stream_end:
-                    grow *= 2
-                    continue
+                    counts["clusters"] += len(opened)
+                    bitmap = boundary_bitmap(stream, self.params)
+                    for cl, cuts in zip(opened, cut_segments(
+                            bitmap, segments, self.params)):
+                        cl.resync(cuts, cum, last, window)
+                done = all(cl.resume is not None for cl in clusters)
                 with obs.trace("splice.encode"):
-                    raws, sizes = [], []
-                    start = 0
-                    upto = (len(cuts) if splice_at is None
-                            else splice_at[0] + 1)
-                    for c in cuts[:upto]:
-                        raws.append(ck.encode_chunk(ck.BLOB,
-                                                    buf[start:c].tobytes()))
-                        sizes.append(c - start)
-                        start = c
-                    new_leaves = [Entry(cid, cnt) for cid, cnt
-                                  in zip(self._put_chunks(raws), sizes)]
-                counts["new_leaves"] = len(new_leaves)
-                tail = leaves[splice_at[1]:] if splice_at else []
-                if len(buf) == 0 and not new_leaves and not tail and j0 == 0:
-                    self.levels[0] = self._empty(self.store, ck.BLOB,
-                                                 self.params).levels[0]
-                else:
-                    self.levels[0] = leaves[:j0] + new_leaves + tail
-                    if not self.levels[0]:
-                        self.levels[0] = self._empty(self.store, ck.BLOB,
-                                                     self.params).levels[0]
-                self._rebuild_index()
-                self._commit_batch()
-                if sp is not None:
-                    sp.set(**counts)
-                return
+                    for cl in opened:
+                        if cl.resume is not None:
+                            cl.encode()
+                    if done:
+                        cids = iter(self._put_chunks(
+                            [r for cl in clusters for r in cl.raws]))
+                if done:
+                    break
+            level: list[Entry] = []
+            prev = 0
+            for cl in clusters:
+                level += leaves[prev:cl.j0]
+                level += [Entry(next(cids), n) for n in cl.sizes]
+                counts["new_leaves"] += len(cl.sizes)
+                prev = cl.resume
+            level += leaves[prev:]
+            self.levels[0] = level or self._empty(self.store, ck.BLOB,
+                                                  self.params).levels[0]
+            self._rebuild_index()
+            self._commit_batch()
+            if sp is not None:
+                sp.set(**counts)
 
     def splice_elements(self, edits: list[tuple[int, int, list[bytes],
                                                 list[bytes] | None]],

@@ -77,9 +77,11 @@ _current: contextvars.ContextVar[Span | None] = contextvars.ContextVar(
     "repro_obs_span", default=None)
 
 MAX_CHILDREN = 128
-#: Ring size: a 51 s window of either analytics cell of the benchmark
-#: finishes a few hundred spans (about 16 a commit, 2 a whole read).
-SPAN_RING = 1 << 12
+#: Ring size: a 51 s window of the benchmark's commit cell finishes
+#: ~7,000 spans (about 15 a commit, ~470 commits), one of its read cell a
+#: few hundred (2 a whole read); a span reader finds nothing once the ring
+#: has dropped a span of its window.
+SPAN_RING = 1 << 14
 
 
 class Span:

@@ -238,16 +238,18 @@ def test_cluster_sequence_parity(hash_name, mode):
 
 # ------------------------------------------------------------ durable carry
 
-def durable_sequence(core, params, root) -> dict:
+def durable_sequence(core, params, root, blob_params=None) -> dict:
     """Seeded durable-cluster operations, then ``sync()`` and a close;
-    returns every uid, every node's branch table and the index."""
+    returns every uid, every node's branch table and the index.  The blob
+    is built at the default params unless ``blob_params`` are given."""
     rng = np.random.default_rng(29)
     cl = core.Cluster(3, "2LP", params, durable_root=root,
                       hot_bytes=16 << 10, segment_bytes=32 << 10)
     uids = [cl.put(b"key%02d" % i,
                    core.FMap({b"f%02d" % j: rng.bytes(40) for j in range(8)}))
             for i in range(12)]
-    uids.append(cl.put("blob", core.FBlob(rng.bytes(60_000))))
+    blob_kw = {} if blob_params is None else {"params": blob_params}
+    uids.append(cl.put("blob", core.FBlob(rng.bytes(60_000), **blob_kw)))
     cl.fork("blob", "master", "dev")
     b = cl.get("blob", "dev").blob()
     b.replace(10_000, 40, rng.bytes(40))
@@ -305,3 +307,39 @@ def test_durable_cluster_roots_open_in_the_other_package(tmp_path,
             assert cl.audit(sample=10_000, secret=SECRET).ok
             for n in cl.nodes:
                 n.store.close()
+
+
+def segment_chunks(root) -> dict[str, dict[bytes, bytes]]:
+    """Each node's segment chunks under ``root``, cid to raw bytes."""
+    from repro_torch.storage.durable import SegmentBackend
+    out = {}
+    for node in sorted(os.listdir(root)):
+        seg = SegmentBackend(os.path.join(root, node, "segments"))
+        cids = sorted(seg.iter_cids())
+        out[node] = dict(zip(cids, seg.get_many(cids)))
+        seg.close()
+    return out
+
+
+@pytest.mark.parametrize("hash_name", ["sha256", "fphash"])
+def test_durable_cluster_roots_blob_at_cluster_params(tmp_path, hash_name):
+    """The sequence with its blob built at the cluster's params, which the
+    port splices as separate clusters of edits: the same uids, branch
+    tables and index, the same files, each byte-identical but the
+    segments, and the same chunks in each node's segments.  The order of
+    the records in a segment follows the 16 KiB memory tier's demotions,
+    which follow the splice's reads: the reference reads every leaf from
+    the first edit to the last, the port the leaves around each cluster."""
+    roots = {"ref": str(tmp_path / "ref"), "port": str(tmp_path / "port")}
+    with cid_hash(hash_name):
+        written = {"ref": durable_sequence(rc, REF.params, roots["ref"],
+                                           blob_params=REF.params),
+                   "port": durable_sequence(pc, PORT.params, roots["port"],
+                                            blob_params=PORT.params)}
+        assert written["ref"] == written["port"]
+        files = {w: tree_bytes(roots[w]) for w in roots}
+        assert sorted(files["ref"]) == sorted(files["port"])
+        for name, raw in files["ref"].items():
+            if "/segments/" not in name:
+                assert files["port"][name] == raw, name
+        assert segment_chunks(roots["ref"]) == segment_chunks(roots["port"])

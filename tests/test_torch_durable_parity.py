@@ -149,13 +149,15 @@ def test_segment_roots_open_in_the_other_package(tmp_path):
 
 # -------------------------------------------------------- durable engine
 
-def engine_sequence(core, params, root) -> dict:
+def engine_sequence(core, params, root, blob_params=None) -> dict:
     """Seeded durable-engine operations, then ``sync()``; returns every
-    uid and the branch table."""
+    uid and the branch table.  The blob is built at the default params
+    unless ``blob_params`` are given."""
     rng = np.random.default_rng(11)
     db = core.ForkBase(params=params, durable_root=root,
                        hot_bytes=16 << 10, segment_bytes=32 << 10)
-    uids = [db.put("blob", core.FBlob(rng.bytes(60_000)))]
+    blob_kw = {} if blob_params is None else {"params": blob_params}
+    uids = [db.put("blob", core.FBlob(rng.bytes(60_000), **blob_kw))]
     items = {f"k{i:04d}".encode(): rng.bytes(24) for i in range(400)}
     uids.append(db.put("map", core.FMap(items)))
     base = uids[-1]
@@ -212,6 +214,19 @@ def test_engine_roots_are_byte_identical(tmp_path, hash_name):
     assert sum(n.startswith("segments") for n in ref_files) >= 3
     assert sorted(port_files) == sorted(ref_files)
     assert port_files == ref_files
+
+
+@pytest.mark.parametrize("hash_name", ["sha256", "fphash"])
+def test_engine_roots_blob_at_engine_params(tmp_path, hash_name):
+    """The sequence with its blob built at the engine's params, which the
+    port splices as separate clusters: the same uids and branch table,
+    and byte-identical roots."""
+    ref_root, port_root = str(tmp_path / "ref"), str(tmp_path / "port")
+    with cid_hash(hash_name):
+        want = engine_sequence(rc, REF_P8, ref_root, blob_params=REF_P8)
+        got = engine_sequence(pc, P8, port_root, blob_params=P8)
+    assert got == want
+    assert tree_bytes(port_root) == tree_bytes(ref_root)
 
 
 @pytest.mark.parametrize("hash_name", ["sha256", "fphash"])

@@ -55,14 +55,16 @@ def fphash_both():
 
 # ------------------------------------------------------- parity sequence
 
-def run_sequence(core, params):
+def run_sequence(core, params, blob_params=None):
     """Blob/List/Map/Set puts, FBlob replace/insert/append, an FMap edit,
     fork, fork-on-conflict puts, merges, track and lca.  Returns every
-    observable id."""
+    observable id.  The blob is built at the default params unless
+    ``blob_params`` are given."""
     rng = np.random.default_rng(42)
     db = core.ForkBase(params=params)
     uids = []
-    uids.append(db.put("blob", core.FBlob(rng.bytes(40_000))))
+    blob_kw = {} if blob_params is None else {"params": blob_params}
+    uids.append(db.put("blob", core.FBlob(rng.bytes(40_000), **blob_kw)))
     uids.append(db.put("list", core.FList(
         [rng.bytes(int(rng.integers(1, 200))) for _ in range(200)])))
     items = {f"k{i:04d}".encode(): rng.bytes(24) for i in range(600)}
@@ -122,6 +124,56 @@ def test_sequence_parity_fphash():
         want = run_sequence(rc, REF_P8)
     assert got == want
     assert got[0] != run_sequence(pc, P8)[0]    # sha256 cids differ
+
+
+@pytest.mark.parametrize("hash_name", ["sha256", "fphash"])
+def test_sequence_parity_blob_at_engine_params(hash_name):
+    """The sequence with its blob built at the engine's params: the port
+    splices the blob's scattered edits as separate clusters, and every id
+    is still the reference's."""
+    from repro_torch import obs
+    with fphash_both() if hash_name == "fphash" else contextlib.nullcontext():
+        obs.SPANS.clear()
+        got = run_sequence(pc, P8, blob_params=P8)
+        clusters = [sp.attrs["clusters"] for sp in obs.SPANS.spans()
+                    if sp.name == "tree.splice"]
+        want = run_sequence(rc, REF_P8, blob_params=REF_P8)
+    assert got == want
+    assert max(clusters) >= 2
+
+
+def test_engine_remembers_the_blob_roots_its_params_cut():
+    """A blob built at the engine's params reads back as cut by them and
+    splices scattered edits as separate clusters; one built at other
+    params splices them as one span from the first edit to the last, as
+    the reference does, and both read back the edited bytes."""
+    from repro_torch import obs
+    rng = np.random.default_rng(21)
+    data = rng.bytes(30_000)
+    edits = [(1_000, 40, rng.bytes(40)), (15_000, 0, rng.bytes(300)),
+             (29_000, 500, b"")]
+    db = pc.ForkBase(params=P8)
+    ref = rc.ForkBase(params=REF_P8)
+    for key, kw, ref_kw in (("own", {"params": P8}, {"params": REF_P8}),
+                            ("default", {}, {})):
+        db.put(key, pc.FBlob(data, **kw))
+        ref.put(key, rc.FBlob(data, **ref_kw))
+    for key in ("own", "default"):
+        b, rb = db.get(key).blob(), ref.get(key).blob()
+        assert b.tree.cut_by_params == (key == "own")
+        for pos, n, new in edits:
+            b.replace(pos, n, new)
+            rb.replace(pos, n, new)
+        obs.SPANS.clear()
+        uid = db.put(key, b)
+        sp = next(sp for sp in obs.SPANS.spans() if sp.name == "tree.splice")
+        assert sp.attrs["clusters"] == (3 if key == "own" else 1)
+        assert uid == ref.put(key, rb)
+        assert db.get(key).blob().tree.cut_by_params == (key == "own")
+    got = db.get("own").blob().read()
+    assert got == db.get("default").blob().read()
+    assert db.get("own").obj.data == POSTree.build_bytes(
+        pc.ChunkStore(), got, P8).root_cid
 
 
 def test_batched_verbs_match_single_puts():
@@ -302,6 +354,171 @@ def test_blob_splice_equals_rebuild():
             ref = POSTree.build_bytes(s, cur, P8)
             assert tree.root_cid == ref.root_cid
             assert tree.read_bytes(0, tree.total_count) == cur
+
+
+# ------------------------------------- clustered splices of scattered edits
+
+def _leaf_ends(tree):
+    return np.cumsum([e.count for e in tree.levels[0]]).tolist()
+
+
+def _rewrite(rng, s, e):
+    return (s, e, rng.bytes(e - s))
+
+
+def _batch_scattered(rng, data, ends):
+    k = int(rng.integers(2, 51))
+    at = np.sort(rng.choice(np.arange(0, len(data) - 16, 16), k,
+                            replace=False))
+    return [_rewrite(rng, int(a), int(a) + 1 + int(rng.integers(0, 15)))
+            for a in at]
+
+
+def _batch_one_leaf_apart(rng, data, ends):
+    # one edit in every other leaf, then in each of three adjacent leaves
+    first = int(rng.integers(1, len(ends) // 2))
+    leaves = list(range(first, first + 10, 2)) + [first + 12, first + 13,
+                                                  first + 14]
+    return [_rewrite(rng, ends[j - 1] + 3, ends[j - 1] + 9) for j in leaves]
+
+
+def _batch_resync_into_next(rng, data, ends):
+    # the first edit ends on its leaf's end and the leaf after it is
+    # shorter than the window, so it cannot resync within its first
+    # window, which then reaches the second edit's leaf
+    sizes = np.diff([0] + ends)
+    j = next(j for j in range(1, len(ends) - 6)
+             if sizes[j + 1] < P8.window)
+    a = _rewrite(rng, ends[j] - 5, ends[j])
+    b = _rewrite(rng, ends[j + 2] + 1, ends[j + 2] + 4)
+    return [a, b, _rewrite(rng, ends[-4] + 1, ends[-4] + 3)]
+
+
+def _batch_first_and_last_leaf(rng, data, ends):
+    n = len(data)
+    return [(0, 4, rng.bytes(9)), _rewrite(rng, ends[len(ends) // 2],
+                                           ends[len(ends) // 2] + 5),
+            (n - 3, n, rng.bytes(1)), (n, n, rng.bytes(700))]
+
+
+def _batch_inserts_and_deletes(rng, data, ends):
+    k = int(rng.integers(2, 41))
+    at = np.sort(rng.choice(np.arange(0, len(data), 64), k, replace=False))
+    j = len(ends) // 3
+    gone = (ends[j], ends[j + 3])      # a delete of three whole leaves
+    out = [(*gone, b"")]
+    for i, a in enumerate(at.tolist()):
+        if gone[0] - 64 <= a < gone[1]:
+            continue
+        if i % 3 == 0:
+            out.append((a, a, rng.bytes(int(rng.integers(1, 900)))))
+        elif i % 3 == 1:
+            out.append((a, min(a + int(rng.integers(1, 600)), a + 63,
+                               len(data)), b""))
+        else:
+            out.append((a, a + 10, rng.bytes(int(rng.integers(0, 40)))))
+    return sorted(out, key=lambda e: e[0])
+
+
+def _batch_delete_everything(rng, data, ends):
+    cut = sorted(set(rng.choice(len(data), 5, replace=False).tolist()))
+    bounds = [0] + cut + [len(data)]
+    return [(s, e, b"") for s, e in zip(bounds, bounds[1:])]
+
+
+SPLICE_BATCHES = {
+    "scattered": _batch_scattered,
+    "one_leaf_apart": _batch_one_leaf_apart,
+    "resync_into_next": _batch_resync_into_next,
+    "first_and_last_leaf": _batch_first_and_last_leaf,
+    "inserts_and_deletes": _batch_inserts_and_deletes,
+    "delete_everything": _batch_delete_everything,
+}
+
+
+def _spliced_bytes(data, edits):
+    out, pos = [], 0
+    for s, e, rep in edits:
+        out += [data[pos:s], rep]
+        pos = e
+    return b"".join(out + [data[pos:]])
+
+
+def _splice_cases(name):
+    """(data, edits) on blobs of 20 to 200 leaves at P8, seeded by case."""
+    rng = np.random.default_rng(list(SPLICE_BATCHES).index(name) + 40)
+    for n in (8_000, 20_000, 45_000):
+        data = rng.bytes(n)
+        ends = _leaf_ends(POSTree.build_bytes(pc.ChunkStore(), data, P8))
+        assert 20 <= len(ends) <= 200
+        yield data, SPLICE_BATCHES[name](rng, data, ends)
+
+
+def _splice_span(tree, edits):
+    from repro_torch import obs
+    obs.SPANS.clear()
+    tree.splice_bytes(edits)
+    return next(sp for sp in obs.SPANS.spans() if sp.name == "tree.splice")
+
+
+@pytest.mark.parametrize("name", list(SPLICE_BATCHES))
+def test_clustered_splice_equals_rebuild(name):
+    """A batch of edits spliced at once, however it clusters, gives the
+    tree a fresh build of the edited bytes gives."""
+    for data, edits in _splice_cases(name):
+        s = pc.ChunkStore()
+        tree = POSTree.build_bytes(s, data, P8)
+        sp = _splice_span(tree, edits)
+        cur = _spliced_bytes(data, edits)
+        assert tree.root_cid == POSTree.build_bytes(s, cur, P8).root_cid
+        assert tree.read_bytes(0, tree.total_count) == cur
+        assert sp.attrs["edits"] == len(edits)
+        if name in ("one_leaf_apart", "delete_everything"):
+            assert sp.attrs["clusters"] == sp.attrs["attempts"]
+        if name == "resync_into_next":
+            assert sp.attrs["attempts"] >= 2
+        if name == "delete_everything":
+            assert tree.total_count == 0
+
+
+@pytest.mark.parametrize("name", list(SPLICE_BATCHES))
+def test_clustered_splice_matches_reference(name):
+    """The reference's splice of the same batch (one span from the first
+    edit to the last) gives the same root cid."""
+    from repro.core.postree import POSTree as RefPOSTree
+    for data, edits in _splice_cases(name):
+        tree = POSTree.build_bytes(pc.ChunkStore(), data, P8)
+        ref = RefPOSTree.build_bytes(rc.ChunkStore(), data, REF_P8)
+        assert tree.root_cid == ref.root_cid
+        tree.splice_bytes(edits)
+        ref.splice_bytes(edits)
+        assert tree.root_cid == ref.root_cid
+        assert tree.total_count == ref.total_count
+
+
+@pytest.mark.parametrize("pattern", ["scattered", "contiguous"])
+def test_splice_counts_its_clusters(pattern):
+    """100 edits at uniform offsets of a blob of over 2,000 leaves
+    re-chunk as separate clusters and a small share of the blob; one
+    contiguous edit is one cluster."""
+    rng = np.random.default_rng(14)
+    data = rng.bytes(2_000_000)
+    tree = POSTree.build_bytes(pc.ChunkStore(), data, P8)
+    assert len(tree.levels[0]) >= 2_000
+    if pattern == "scattered":
+        at = np.sort(rng.choice(len(data) - 200, 100, replace=False))
+        edits = [_rewrite(rng, int(a), int(a) + 180) for a in at]
+    else:
+        edits = [_rewrite(rng, 300_000, 306_000)]
+    sp = _splice_span(tree, edits)
+    assert tree.read_bytes(0, tree.total_count) == _spliced_bytes(data,
+                                                                  edits)
+    if pattern == "scattered":
+        assert sp.attrs["clusters"] >= 50
+        assert sp.attrs["rechunked"] < len(data) // 10
+        assert sp.attrs["leaves_read"] < len(tree.levels[0]) // 4
+    else:
+        assert sp.attrs["clusters"] == 1 == sp.attrs["attempts"]
 
 
 def test_map_edits_equal_rebuild():

@@ -483,8 +483,11 @@ def test_span_ring_reads_while_other_threads_finish_spans():
         t.start()
     reads = 0
     try:
-        deadline = time.perf_counter() + 1.0
-        while time.perf_counter() < deadline:
+        # read for a second, and on until the ring is full and wrapping
+        t0 = time.perf_counter()
+        while (time.perf_counter() < t0 + 1.0
+               or len(obs.SPANS) < obs.SPANS.capacity
+               and time.perf_counter() < t0 + 30.0):
             assert all(sp.parent_id == 0 for sp in obs.recent_spans())
             newest = obs.SPANS.finished_since(0)
             assert all(a.span_id != b.span_id
