@@ -12,9 +12,19 @@ Its operations (``ops/``, named by a mix's ``op``) use two steps:
 
 Set-up writes every account and commits (block 0).  The judge replays the
 same inputs through the plain reference.
+
+A config whose ``deployment`` is ``durable`` keeps the engine's chunks and
+heads under a fresh directory of ``TMPDIR`` (``hot_bytes`` of memory tier
+over ``segment_bytes`` segments) and acknowledges each block after
+``sync()``; after the window the engine is reopened there, verifying
+every chunk it reads, and the judge holds the chain's head, its state uid,
+that state's root and the accounts it reads back to the last block's.
 """
 from __future__ import annotations
 
+import os
+import shutil
+import tempfile
 import time
 
 import numpy as np
@@ -25,6 +35,9 @@ from bench.reference import plain
 
 CONTRACT = "kv"
 SECRET = b"bench-ledger-attestation"
+# accounts beside the last block's writes that a durable deployment's
+# reopened engine reads back
+READ_BACK = 256
 
 
 class Family:
@@ -41,6 +54,8 @@ class Family:
         self.queries: list[dict] = []
         self.sampled: list[int] = []
         self.pick = np.random.default_rng([seed, 3])
+        self.durable = bool(config["deployment"].get("durable"))
+        self.root = None
 
     # -------------------------------------------------------------- set-up
     def setup(self, spans) -> None:
@@ -52,15 +67,26 @@ class Family:
         if dep["cid_hash"] != "fphash" or not dep["live"]:
             raise ValueError("the ledger family runs live, with fphash cids")
         hashing.use_fphash()
-        self.led = ForkBaseLedger(
-            ForkBase(None, ChunkParams(**self.cfg["chunking"])), live=True)
+        params = ChunkParams(**self.cfg["chunking"])
+        if self.durable:
+            self.root = tempfile.mkdtemp(prefix="bench-ledger-",
+                                         dir=os.environ.get("TMPDIR"))
+            db = ForkBase(None, params, durable_root=self.root,
+                          hot_bytes=int(dep["hot_bytes"]),
+                          segment_bytes=int(dep["segment_bytes"]))
+        else:
+            db = ForkBase(None, params)
+        self.led = ForkBaseLedger(db, live=True)
         vals = self.rng.bytes(self.vb * self.n)
         with spans.span("setup.accounts"):
             for i in range(self.n):
                 self.led.write(CONTRACT, gen.account_key(i),
                                vals[self.vb * i:self.vb * (i + 1)])
             # block 0: every account, in order
-            self.blocks.append({"uid": self.led.commit(), "ops": vals})
+            uid = self.led.commit()
+            if self.durable:
+                self.led.db.sync()
+            self.blocks.append({"uid": uid, "ops": vals})
         self.client = LightClient(self.blocks[-1]["uid"])
         self.refresh()
 
@@ -95,6 +121,9 @@ class Family:
                     done.append((k, v, None))
         with spans.span("block.commit"):
             uid = led.commit()
+        if self.durable:
+            with spans.span("sync"):
+                led.db.sync()
         self.blocks.append({"uid": uid, "ops": done})
 
     def query(self, k: int, spans) -> float:
@@ -133,7 +162,9 @@ class Family:
     # ---------------------------------------------------- after the window
     def finish(self) -> None:
         """Reads, before the program is freed, each block's meta chunk,
-        the state uid its map binds and that state version's meta chunk."""
+        the state uid its map binds and that state version's meta chunk;
+        of a durable deployment, also what a reopened engine finds
+        (``_reopen``)."""
         from repro_torch.apps.blockchain import STATE_KEY
         from repro_torch.core import hashing
 
@@ -147,8 +178,56 @@ class Family:
             b["state_meta"] = (db.store.get(b["state_uid"])
                                if b["state_uid"] else None)
         self.state_key = STATE_KEY.encode()
+        if self.durable:
+            self.reopened = self._reopen()
         hashing.use_sha256()
         self.led = self.client = None
+
+    def _reopen(self) -> dict:
+        """Closes the store, reopens the engine on its directory, verifying
+        every chunk it reads, and reads the ``chain`` head on master, the
+        state uid that block binds, that state version's meta chunk and,
+        from its map, the accounts of ``_read_back``; each None where the
+        reopened engine lacks it."""
+        from repro_torch.apps.blockchain import STATE_KEY
+        from repro_torch.core import ForkBase
+        from repro_torch.core.chunker import ChunkParams
+        from repro_torch.errors import ReproError
+
+        self.led.db.store.close()
+        got = dict.fromkeys(("head", "state_uid", "state_meta"))
+        got["values"] = dict.fromkeys(self._read_back())
+        try:                                 # a reopen that fails loses all
+            db = ForkBase(durable_root=self.root, verify_get=True,
+                          params=ChunkParams(**self.cfg["chunking"]))
+        except ReproError:
+            db = None
+        if db is not None:
+            got["head"] = db.branches.head(b"chain", "master")
+            try:
+                if got["head"] is not None:
+                    state = db.get("chain", uid=got["head"]).map()
+                    got["state_uid"] = bytes(state.get(b"state"))
+                    got["state_meta"] = db.store.get(got["state_uid"])
+                    accounts = db.get(STATE_KEY, uid=got["state_uid"]).map()
+                    for k in got["values"]:
+                        got["values"][k] = accounts.get(
+                            f"{CONTRACT}/{gen.account_key(k)}".encode())
+            except (ReproError, TypeError):   # TypeError: no "state" entry
+                pass
+            db.store.close()
+        shutil.rmtree(self.root, ignore_errors=True)
+        return got
+
+    def _read_back(self) -> list[int]:
+        """The accounts read back from a reopened engine: every account
+        the last block wrote, and ``READ_BACK`` others drawn from the
+        seed."""
+        ops = self.blocks[-1]["ops"] if len(self.blocks) > 1 else ()
+        written = {k for k, v, _ in ops if v is not None}
+        drawn = np.random.default_rng([self.seed, 4]).choice(
+            self.n, size=min(READ_BACK, self.n), replace=False)
+        return sorted(written | set(drawn.tolist()))
 
     # ------------------------------------------------------------- judging
     def _sorted_ids(self) -> np.ndarray:
@@ -260,4 +339,24 @@ class Family:
                                        zip(keys, order.tolist())],
                                       self.chunking, device)
                 bad["root_mismatch"] += data != want
+        if self.durable:
+            bad["durable_mismatch"] = self._durable_bad(
+                want if n > 1 else plain.map_root(
+                    [(k, values[i]) for k, i in zip(keys, order.tolist())],
+                    self.chunking, device), values)
         return {k: (int(v), 0) for k, v in bad.items()}
+
+    def _durable_bad(self, root: bytes, values: list) -> int:
+        """What the reopened engine found against the last block: its
+        head, its state uid, that state's root against ``root``, the
+        reference's, and each account read back against ``values``, the
+        reference's after the last block; one a mismatch."""
+        got, last = self.reopened, self.blocks[-1]
+        try:
+            data = plain.Meta.decode(got["state_meta"]).data
+        except (TypeError, ValueError, IndexError):
+            data = None
+        lost = sum(v != values[k] for k, v in got["values"].items())
+        return ((got["head"] != last["uid"])
+                + (got["state_uid"] != last["state_uid"]) + (data != root)
+                + lost)

@@ -4,19 +4,23 @@ each cell's control does not.  Skips without a CUDA card; on the card:
 sizes run with ``bench/control.py``."""
 import pytest
 
+from bench import control
 from bench.tests import tiny
-from bench.tests.test_bench_cells import CELLS, CONTROLS
+
+CASES = tiny.cases(tiny.bench())
 
 
 @pytest.mark.chip
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", CASES["cells"])
 def test_cell_and_its_control_on_the_card(card, cell):
     from bench.harness.runner import run_cell
+    config = tiny.config_of(cell)
     for fault, want in ((None, True),
-                        *((c, False) for c in CONTROLS[cell])):
+                        *((c, False) for c in CASES["controls"][cell])):
         result, _ = run_cell(cell, tiny.SEED, 1.0, False, device=card,
-                             bench=tiny.bench(), config=tiny.config_of(cell),
+                             bench=tiny.bench(), config=config,
                              traffic=tiny.traffic_of(cell),
-                             plant=fault and tiny.planted(cell, fault))
+                             plant=fault and control.fault(config["family"],
+                                                           fault))
         assert result["correct"] is want, (fault, result["checks"])
         assert result["device"]["platform"] == "gpu"

@@ -1,7 +1,10 @@
 """BENCHMARK.json against the files the harness finds by name, and a cell
 and a metric added with new files alone."""
 import json
+import os
 import shutil
+import subprocess
+import sys
 
 import pytest
 
@@ -9,6 +12,10 @@ from bench.harness import core
 from bench.tests import tiny
 
 BENCH = core.load_benchmark()
+# the pending cells' end-to-end metric of a commit, which a cell added in
+# a test reports
+COMMIT_MS = next(m for m in tiny.PENDING["end_to_end"]
+                 if m["name"] == "commit_ms")
 
 
 def test_every_name_resolves_to_its_files():
@@ -39,8 +46,8 @@ def test_each_per_layer_metric_moves_a_metric_its_cells_report():
 
 def _copy(tmp_path):
     bench_dir = tmp_path / "bench"
-    for sub in ("configs", "traffic", "metrics", "families", "ops"):
-        shutil.copytree(core.BENCH_DIR / sub, bench_dir / sub)
+    shutil.copytree(core.BENCH_DIR, bench_dir,
+                    ignore=shutil.ignore_patterns("__pycache__"))
     return bench_dir
 
 
@@ -56,7 +63,8 @@ def test_a_cell_and_a_metric_are_added_with_files_alone(tmp_path):
     bench["workloads"].append({
         "name": "analytics.clustered-commit", "config": "analytics-250k",
         "traffic": "clustered-commit", "chips": 1, "why": "a test cell"})
-    bench["end_to_end"][0]["workloads"].append("analytics.clustered-commit")
+    bench["end_to_end"].append(dict(COMMIT_MS,
+                                    workloads=["analytics.clustered-commit"]))
     bench["per_layer"].append({
         "name": "commits_done.clustered", "unit": "commits",
         "better": "higher", "source": "host_clock", "layer": "test",
@@ -86,6 +94,10 @@ class Family:
     def setup(self, spans):
         pass
 
+    def step(self):
+        self.n += 1
+        return self.n
+
     def counters(self):
         from repro_torch.kernels import ops
         return {"launches": ops.launches()}
@@ -99,9 +111,51 @@ class Family:
 '''
 
 COUNT = '''def run(fam, spans):
-    fam.n += 1
-    fam.seen.append(fam.n)
+    fam.seen.append(fam.step())
     return 1.0, None
+'''
+
+COUNTER_FAULTS = '''"""The counter's controls and faults, and the size of its tests."""
+
+TEST_SCALE = ("start", 5)
+
+
+def controls(config, traffic):
+    return ("skip_one",)
+
+
+def faults(config, traffic):
+    return ("unchanged_state", "half_batch", "altered_answer")
+
+
+def skip_one(fam):
+    step = fam.step
+
+    def skipping():
+        if fam.n == 10:
+            step()
+        return step()
+
+    fam.step = skipping
+
+
+def unchanged_state(fam):
+    fam.step = lambda: fam.n
+
+
+def half_batch(fam):
+    step = fam.step
+
+    def halving():
+        step()
+        return step()
+
+    fam.step = halving
+
+
+def altered_answer(fam):
+    step = fam.step
+    fam.step = lambda: step() ^ 1
 '''
 
 
@@ -139,6 +193,84 @@ def test_an_operation_and_a_family_are_added_with_files_alone(tmp_path):
         assert result["correct"], result["checks"]
         assert result["metrics"]["ops_done"]["value"] >= 1
     assert set(result["checks"]) == {"count_gaps", "failed_ops"}
+
+
+def _collect(root):
+    """``pytest --collect-only`` of ``root``'s ``bench/tests``, in a
+    process of its own that imports the benchmark from ``root``."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PYTEST_")}
+    env["PYTHONPATH"] = os.pathsep.join([str(root), str(core.REPO / "src")])
+    return subprocess.run(
+        [sys.executable, "-m", "pytest", "--collect-only", "-q",
+         "-p", "no:cacheprovider", "bench/tests"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_a_durable_ledger_cell_and_a_family_s_cell_are_tested_from_files_alone(
+        tmp_path):
+    """A ledger cell of YCSB workload A's blocks on a durable deployment,
+    and a cell of a new family, each added with its own files and a
+    ``BENCHMARK.json`` entry: the tests build their cases (a sound run,
+    each fault that applies, the controls), which pass on the CPU, and
+    the copy's tests collect without an error."""
+    bench_dir = _copy(tmp_path)
+    cfg = dict(tiny.PENDING["configs"]["ledger-pending-durable"],
+               name="ledger-ycsb", value_bytes=1000, accounts=20000)
+    files = {"configs/ledger-ycsb.json": cfg,
+             "traffic/ycsb-a-blocks.json": {
+                 "name": "ycsb-a-blocks", "op": "block", "reads": 250,
+                 "writes": 250, "key_dist": "zipfian", "check_blocks": 2},
+             "configs/counter.json": {"name": "counter", "family": "counter",
+                                      "start": 5},
+             "traffic/counting.json": {"name": "counting", "op": "count"}}
+    for path, data in files.items():
+        (bench_dir / path).write_text(json.dumps(data))
+    (bench_dir / "families" / "counter.py").write_text(COUNTER)
+    (bench_dir / "ops" / "count.py").write_text(COUNT)
+    (bench_dir / "faults" / "counter.py").write_text(COUNTER_FAULTS)
+    bench = json.loads(json.dumps(BENCH))
+    new = {"ledger.ycsb-a-blocks": ("ledger-ycsb", "ycsb-a-blocks"),
+           "counter.counting": ("counter", "counting")}
+    bench["end_to_end"].append(dict(COMMIT_MS, workloads=[]))
+    for name, (config, mix) in new.items():
+        bench["configs"].append({"name": config, "source": "a test",
+                                 "file": f"bench/configs/{config}.json",
+                                 "reduced": [], "why": "a test"})
+        bench["workloads"].append({"name": name, "config": config,
+                                   "traffic": mix, "chips": 1,
+                                   "why": "a test cell"})
+        bench["end_to_end"][-1]["workloads"].append(name)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    cases = tiny.cases(bench, bench_dir)
+    faults = ("unchanged_state", "half_batch", "altered_answer", "control")
+    assert cases["controls"]["ledger.ycsb-a-blocks"] == (
+        "drop_write", "skip_sync", "lost_leaves")
+    assert cases["controls"]["counter.counting"] == ("skip_one",)
+    want = {("ledger.ycsb-a-blocks", "skip_sync"),
+            ("ledger.ycsb-a-blocks", "lost_leaves")} | {
+        (cell, f) for cell in new for f in faults}
+    assert {c for c in cases["broken"] if c[0] in new} == want
+    for cell in new:
+        assert cell in cases["cells"]
+        result, _ = tiny.run(cell, bench=bench, bench_dir=bench_dir)
+        assert result["correct"], (cell, result["checks"])
+        assert "commit_ms" in result["metrics"]
+    for cell, fault in sorted(want):
+        fault = cases["controls"][cell][0] if fault == "control" else fault
+        result, _ = tiny.run(cell, fault=fault, bench=bench,
+                             bench_dir=bench_dir)
+        assert not result["correct"], (cell, fault, result["checks"])
+
+    out = _collect(tmp_path)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-4000:]
+    assert "error" not in out.stdout.splitlines()[-1], out.stdout[-4000:]
+    for cell, fault in want:
+        assert (f"test_a_broken_timed_path_is_not_correct[{cell}-{fault}]"
+                in out.stdout), (cell, fault)
+    for cell in new:
+        assert f"test_cell_runs_correct_on_the_cpu[{cell}]" in out.stdout
 
 
 def test_unknown_names_are_refused():
