@@ -207,6 +207,33 @@ def test_compaction_reclaims_dead_bytes_per_segment(tmp_path, rng):
     be2.close()
 
 
+def test_sealed_segments_are_read_through_maps_that_follow_compaction(
+        tmp_path, rng):
+    """Sealed segments are read through a read-only map of their file, the
+    active one with ``pread``; a compaction that rewrites a segment (new
+    offsets, a new file) or drops it closes its map with its fd, so the
+    next read maps the new file; ``close`` releases every map."""
+    be = SegmentBackend(str(tmp_path / "segs"), segment_bytes=4 << 10,
+                        verify=True)
+    raws = chunks(rng, n=40, size=400)
+    cids = be.put_many(raws)
+    assert be.get_many(cids) == raws
+    sealed = sorted(g for g, seg in be._segments.items() if seg.sealed)
+    assert sorted(be._maps) == sealed and be._active.gen not in be._maps
+    rewrite, drop = sealed[0], sealed[1]
+    half = list(be._segments[rewrite].live)
+    half = half[:len(half) * 3 // 4]
+    be.delete_many(half + list(be._segments[drop].live))
+    be.flush()
+    assert drop not in be._segments and drop not in be._maps
+    assert rewrite not in be._maps           # the old file's map is gone
+    keep = [(c, r) for c, r in zip(cids, raws) if be.has(c)]
+    assert be.get_many([c for c, _ in keep]) == [r for _, r in keep]
+    assert rewrite in be._maps and be.stats.verify_failures == 0
+    be.close()
+    assert not be._maps and not be._rfds
+
+
 def test_tombstone_survives_compaction_against_earlier_segment(tmp_path,
                                                                rng):
     """Resurrection hazard: a tombstone living in a LATER segment than

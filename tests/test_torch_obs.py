@@ -675,3 +675,61 @@ def test_no_check_no_verify_ns():
     cids = store.put_many([b"x" * 100, b"y" * 100])
     store.get_many(cids)
     assert store.stats.verifies == 0 and store.stats.verify_ns == 0
+
+
+# ------------------------------------------------- cold reads by segment
+
+def _cold_read(core, root):
+    """A blob eight times the memory tier put, synced and read back whole:
+    most of the read comes from the segment files.  Returns the engine,
+    the span clock at the read's start and the segment tier's gets and
+    ``verify_ns`` before it."""
+    rng = np.random.default_rng(11)
+    db = core.ForkBase(durable_root=root, verify_get=True,
+                       hot_bytes=16 << 10, segment_bytes=64 << 10)
+    data = rng.bytes(128 << 10)
+    db.put("doc", core.FBlob(data))
+    db.sync()
+    cold = db.store.cold.stats
+    before = (obs.now_ns(), cold.gets, getattr(cold, "verify_ns", 0))
+    assert db.get("doc").blob().read() == data
+    return db, before
+
+
+def test_a_cold_read_records_segment_get_spans_as_the_reference_counts(
+        tmp_path):
+    import repro.core as rc
+    import repro_torch.core as pc
+    db, (t0, gets0, ns0) = _cold_read(pc, str(tmp_path / "port"))
+    cold = db.store.cold.stats
+    spans = [sp for sp in obs.SPANS.spans() if sp.start_ns >= t0]
+    read = next(sp for sp in spans if sp.name == "tree.read")
+    gets = [sp for sp in spans if sp.name == "segment.get"]
+    assert any(sp.parent_id == read.span_id for sp in gets)
+    # every segment get of the read is in a span, and every check's time
+    assert sum(sp.attrs["chunks"] for sp in gets) == cold.gets - gets0 > 0
+    assert sum(sp.attrs["check_ns"] for sp in gets) == \
+        cold.verify_ns - ns0 > 0
+    assert all(sp.attrs["bytes"] > 0 for sp in gets)
+    # the span changes no count: the same sequence through the reference
+    ref, _ = _cold_read(rc, str(tmp_path / "ref"))
+    for own, other in ((db.store.stats, ref.store.stats),
+                       (cold, ref.store.cold.stats)):
+        got = own.as_dict()
+        del got["verify_ns"]
+        assert got == other.as_dict()
+    assert db.store.stats.tier_misses > 0
+    db.store.close()
+    ref.store.close()
+
+
+def test_no_segment_get_span_while_obs_is_off(tmp_path):
+    import repro_torch.core as pc
+    obs.disable()
+    try:
+        db, (_, gets0, _) = _cold_read(pc, str(tmp_path))
+    finally:
+        obs.enable()
+    assert db.store.cold.stats.gets > gets0
+    assert not [sp for sp in obs.SPANS.spans() if sp.name == "segment.get"]
+    db.store.close()
