@@ -49,7 +49,8 @@ from ...errors import ConfigError
 from ...obs import emit as obs_emit
 from ...obs import trace as obs_trace
 from ..backend import (BackendBase, ChunkMissing, TamperedChunk,
-                       check_chunk, resolve_cids)
+                       check_chunk, check_chunks, chunk_cid_of,
+                       resolve_cids)
 from .fsutil import fsync_dir, replace_durably
 
 _CID = 32
@@ -64,20 +65,6 @@ _FOOT_HEAD = struct.Struct("<QI")        # generation, entry count
 _FOOT_ENTRY = struct.Struct("<QI32s")    # record offset, len, cid
 _TRAILER = struct.Struct("<Q8s")         # footer record offset, magic
 _TRAILER_MAGIC = b"SEGTRLR1"
-
-# cid_of lives in the core package, which imports storage back through
-# the chunkstore facade — a module-scope import would cycle, so the
-# binding is resolved once on first use instead of once per call
-_cid_of = None
-
-
-def _chunk_cid_of():
-    global _cid_of
-    if _cid_of is None:
-        from ...core.chunk import cid_of
-        _cid_of = cid_of
-    return _cid_of
-
 
 class _Segment:
     """In-memory face of one segment file."""
@@ -235,7 +222,7 @@ class SegmentBackend(BackendBase):
         entries: list[tuple[int, int, bytes]] = []
         good = 0
         verify = self.verify
-        cid_of = _chunk_cid_of() if verify else None
+        cid_of = chunk_cid_of() if verify else None
         with open(path, "rb") as f:
             while True:
                 off = f.tell()
@@ -299,10 +286,10 @@ class SegmentBackend(BackendBase):
         out = resolve_cids(raws, cids)
         st = self.stats
         if self.verify and provided:
-            cid_of = _chunk_cid_of()
-            for i in provided:
-                if not check_chunk(st, cid_of, raws[i], out[i]):
-                    raise TamperedChunk(out[i], "Put-Chunk")
+            bad = check_chunks(st, [raws[i] for i in provided],
+                               [out[i] for i in provided])
+            if bad is not None:
+                raise TamperedChunk(out[provided[bad]], "Put-Chunk")
         st.put_batches += 1
         for raw, cid in zip(raws, out):
             st.puts += 1
@@ -354,21 +341,26 @@ class SegmentBackend(BackendBase):
             st.get_batches += 1
             if self._wf is not None:
                 self._wf.flush()             # active appends visible to pread
-            verify = self.verify
-            cid_of = _chunk_cid_of() if verify else None
             out = []
+            missing = None
             for cid in cids:
                 st.gets += 1
                 gen = self._index.get(cid)
                 if gen is None:
-                    raise ChunkMissing(cid)
+                    missing = cid
+                    break
                 seg = self._segments[gen]
                 off, ln = seg.live[cid]
-                raw = (self._map(gen)[off:off + ln] if seg.sealed
-                       else os.pread(self._rfd(gen), ln, off))
-                if verify and not check_chunk(st, cid_of, raw, cid):
-                    raise TamperedChunk(cid, "Get-Chunk")
-                out.append(raw)
+                out.append(self._map(gen)[off:off + ln] if seg.sealed
+                           else os.pread(self._rfd(gen), ln, off))
+            # the chunks read are checked as one batch, and a bad one is
+            # reported before a missing chunk that follows it
+            if self.verify and out:
+                bad = check_chunks(st, out, cids[:len(out)])
+                if bad is not None:
+                    raise TamperedChunk(cids[bad], "Get-Chunk")
+            if missing is not None:
+                raise ChunkMissing(missing)
             if sp is not None:
                 sp.set(bytes=sum(map(len, out)), check_ns=st.verify_ns - ns0)
         return out

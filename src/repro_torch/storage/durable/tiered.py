@@ -31,18 +31,8 @@ from collections import OrderedDict
 from ...obs import emit as obs_emit
 from ...obs import trace as obs_trace
 from ..backend import (BackendBase, StorageBackend, TamperedChunk,
-                       check_chunk, delete_via, overlay_get_many,
-                       overlay_has_many, resolve_cids)
-
-_cid_of = None
-
-
-def _chunk_cid_of():
-    global _cid_of
-    if _cid_of is None:
-        from ...core.chunk import cid_of
-        _cid_of = cid_of
-    return _cid_of
+                       check_chunks, delete_via, overlay_has_many,
+                       resolve_cids)
 
 # StoreStats fields the cold tier recovers by log/footer replay on open;
 # a freshly constructed TieredBackend adopts them as its own baseline so
@@ -76,10 +66,10 @@ class TieredBackend(BackendBase):
         out = resolve_cids(raws, cids)
         st = self.stats
         if self.verify and provided:
-            cid_of = _chunk_cid_of()
-            for i in provided:
-                if not check_chunk(st, cid_of, raws[i], out[i]):
-                    raise TamperedChunk(out[i], "Put-Chunk")
+            bad = check_chunks(st, [raws[i] for i in provided],
+                               [out[i] for i in provided])
+            if bad is not None:
+                raise TamperedChunk(out[provided[bad]], "Put-Chunk")
         st.put_batches += 1
         # one batched existence probe against the cold tier for dedup
         unknown = [c for c in dict.fromkeys(out) if c not in self._hot]
@@ -151,30 +141,30 @@ class TieredBackend(BackendBase):
         st = self.stats
         st.get_batches += 1
         st.gets += len(cids)
-        promoted0 = st.tier_promotions
-        verify = self.verify
-        cid_of = _chunk_cid_of() if verify else None
-
-        def on_hit(cid):
-            self._hot.move_to_end(cid)
-            st.cache_hits += 1
-            st.tier_hits += 1
-            if verify and not check_chunk(st, cid_of, self._hot[cid], cid):
-                raise TamperedChunk(cid, "hot-tier hit")
-
-        def fetch(miss):
+        hot = self._hot
+        out = [hot.get(cid) for cid in cids]
+        hits = [i for i, raw in enumerate(out) if raw is not None]
+        for i in hits:
+            hot.move_to_end(cids[i])
+        st.cache_hits += len(hits)
+        st.tier_hits += len(hits)
+        # the hits are checked as one batch before any miss is fetched
+        if self.verify and hits:
+            bad = check_chunks(st, [out[i] for i in hits],
+                               [cids[i] for i in hits])
+            if bad is not None:
+                raise TamperedChunk(cids[hits[bad]], "hot-tier hit")
+        miss = [i for i, raw in enumerate(out) if raw is None]
+        if miss:
             st.tier_misses += len(miss)
-            return self.cold.get_many(miss)
-
-        def promote(cid, raw):
-            st.tier_promotions += 1
-            self._admit(cid, raw, dirty=False)
-
-        out = overlay_get_many(self._hot, cids, fetch,
-                               on_hit=on_hit, on_fetch=promote)
+            fetched = self.cold.get_many([cids[i] for i in miss])
+            for i, raw in zip(miss, fetched):
+                out[i] = raw
+                self._admit(cids[i], raw, dirty=False)
+            st.tier_promotions += len(miss)
         self._evict()
-        if st.tier_promotions > promoted0:
-            obs_emit("tier.promote", chunks=st.tier_promotions - promoted0)
+        if miss:
+            obs_emit("tier.promote", chunks=len(miss))
         return out
 
     def has_many(self, cids) -> list[bool]:

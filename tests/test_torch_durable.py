@@ -20,7 +20,9 @@ from repro_torch.core.branch import BranchTable
 from repro_torch.core.chunk import cid_of, encode_chunk
 from repro_torch.kernels import ops
 from repro_torch.storage import (MemoryBackend, SegmentBackend,
-                                 TieredBackend, WriteBuffer, open_durable)
+                                 TamperedChunk, TieredBackend, WriteBuffer,
+                                 open_durable)
+from repro_torch.storage.backend import CHECK_BATCH_MIN
 from repro_torch.storage.durable.segment import _LEN, _TOMBSTONE
 
 
@@ -335,6 +337,166 @@ def test_tier_delete_of_dirty_chunk_never_hits_disk(tmp_path, rng):
     assert cold.disk_bytes() == 0           # nothing ever written
 
 
+# ------------------------------------------------- batched chunk checks
+
+def _altered(raw: bytes) -> bytes:
+    return raw[:-1] + bytes([raw[-1] ^ 0x55])
+
+
+def _two_tiers(tmp_path, rng):
+    """A verifying tiered store whose memory tier holds 8 chunks and whose
+    segment files alone hold 8 others: (store, hot cids, cold cids, the
+    raw of each cid)."""
+    t = TieredBackend(SegmentBackend(str(tmp_path / "cold"), verify=True),
+                      hot_bytes=1 << 20, verify=True)
+    cold_raws = chunks(rng, n=8)
+    cold = t.put_many(cold_raws)
+    t.flush()
+    t.demote(0)
+    hot_raws = chunks(rng, n=8)
+    hot = t.put_many(hot_raws)
+    return t, hot, cold, dict(zip(cold + hot, cold_raws + hot_raws))
+
+
+@pytest.mark.parametrize("misses", [1, 5])
+def test_hot_hits_are_checked_before_any_miss_is_fetched(tmp_path, rng,
+                                                         misses):
+    t, hot, cold, raw_of = _two_tiers(tmp_path, rng)
+    t._hot[hot[3]] = _altered(raw_of[hot[3]])
+    m0, g0 = t.stats.tier_misses, t.cold.stats.get_batches
+    with pytest.raises(TamperedChunk) as err:
+        t.get_many(cold[:misses] + hot)     # the misses first in the batch
+    assert err.value.cid == hot[3] and err.value.where == "hot-tier hit"
+    assert (t.stats.tier_misses, t.cold.stats.get_batches) == (m0, g0)
+
+
+@pytest.mark.parametrize("site", ["hot", "cold", "put"])
+def test_clearing_the_verify_flags_turns_every_check_off(tmp_path, rng,
+                                                         site):
+    """The flags are read on each call: cleared after construction (the
+    benchmark's ``unverified`` control), no chunk is checked, and an
+    altered chunk or a wrong caller cid goes through."""
+    t, hot, cold, raw_of = _two_tiers(tmp_path, rng)
+    t.verify = t.cold.verify = False
+    v0 = (t.stats.verifies, t.cold.stats.verifies)
+    if site == "put":
+        raw = encode_chunk(3, rng.bytes(300))
+        t.put_many([raw, raw_of[hot[0]]], [bytes(32), hot[0]])
+        t.flush()
+        assert t.get(bytes(32)) == raw
+    else:
+        cid = (hot if site == "hot" else cold)[2]
+        if site == "hot":
+            t._hot[cid] = _altered(raw_of[cid])
+        else:
+            seg = t.cold._segments[t.cold._index[cid]]
+            off, ln = seg.live[cid]
+            with open(seg.path, "r+b") as f:
+                f.seek(off + ln - 1)
+                last = f.read(1)[0]
+                f.seek(off + ln - 1)
+                f.write(bytes([last ^ 0x55]))
+        raw_of[cid] = _altered(raw_of[cid])
+        assert t.get_many(cold + hot) == [raw_of[c] for c in cold + hot]
+    assert (t.stats.verifies, t.cold.stats.verifies) == v0
+    t.close()
+
+
+@pytest.fixture
+def counted_hash(monkeypatch):
+    """fphash cids, with ``ops``'s two hash entry points wrapped before
+    ``use_fphash`` binds them, as the benchmark's byte counter wraps them:
+    the length of each string the single route hashed, and the lengths of
+    each batch the batched route hashed."""
+    from repro_torch.core import hashing
+    seen = {"one": [], "many": []}
+    one, many = ops.content_hash, ops.content_hash_many
+
+    def counted_one(data):
+        seen["one"].append(len(data))
+        return one(data)
+
+    def counted_many(blobs):
+        blobs = list(blobs)
+        seen["many"].append([len(b) for b in blobs])
+        return many(blobs)
+
+    monkeypatch.setattr(ops, "content_hash", counted_one)
+    monkeypatch.setattr(ops, "content_hash_many", counted_many)
+    hashing.use_fphash()
+    try:
+        yield seen
+    finally:
+        hashing.use_sha256()
+
+
+@pytest.mark.parametrize("n", sorted({1, CHECK_BATCH_MIN, 64}))
+@pytest.mark.parametrize("site", ["hot", "cold"])
+def test_a_checked_batch_takes_one_route_by_its_size(tmp_path, rng,
+                                                     counted_hash, site, n):
+    """A batch below ``CHECK_BATCH_MIN`` is checked chunk by chunk through
+    the single route; one at or above it by ONE batched hash."""
+    t = TieredBackend(SegmentBackend(str(tmp_path / "cold"), verify=True),
+                      hot_bytes=1 << 20, verify=True)
+    raws = chunks(rng, n=n)
+    cids = t.put_many(raws)
+    if site == "cold":
+        t.flush()
+        t.demote(0)
+    counted_hash["one"].clear()
+    counted_hash["many"].clear()
+    assert t.get_many(cids) == raws
+    sizes = [len(r) for r in raws]
+    if n < CHECK_BATCH_MIN:
+        assert counted_hash == {"one": sizes, "many": []}
+    else:
+        assert counted_hash == {"one": [], "many": [sizes]}
+    t.close()
+
+
+def _whole_read(tmp_path, rng, seen):
+    """A 1 MB version of a verifying durable engine put, synced and read
+    back whole through both tiers while ``seen`` records the hashes:
+    (strings hashed, hash calls, leaves, index levels, chunks checked)."""
+    db = ForkBase(durable_root=str(tmp_path / "eng"), verify_get=True,
+                  hot_bytes=256 << 10, segment_bytes=64 << 10)
+    data = rng.bytes(1 << 20)
+    db.put("doc", FBlob(data))
+    db.sync()
+    st, cold = db.store.stats, db.store.cold.stats
+    v0 = st.verifies + cold.verifies
+    seen["one"].clear()
+    seen["many"].clear()
+    blob = db.get("doc").blob()
+    assert blob.read() == data
+    assert st.tier_hits and st.tier_misses
+    tree = blob._tree
+    checked = st.verifies + cold.verifies - v0
+    db.store.close()
+    strings = seen["one"] + [n for batch in seen["many"] for n in batch]
+    return (strings, len(seen["one"]) + len(seen["many"]),
+            len(tree.levels[0]), len(tree.levels), checked)
+
+
+def test_a_whole_version_read_hashes_once_a_level_not_once_a_leaf(
+        tmp_path, rng, counted_hash):
+    """The meta chunk, then a probe and a batch a level of the index (a
+    batch below ``CHECK_BATCH_MIN`` is checked chunk by chunk), then the
+    leaves' hits and misses: O(levels) hash calls, not O(leaves)."""
+    _, calls, leaves, levels, _ = _whole_read(tmp_path, rng, counted_hash)
+    assert calls <= (CHECK_BATCH_MIN + 1) * levels + 4 < leaves
+
+
+def test_a_hash_wrapper_on_ops_sees_every_checked_byte_of_a_read(
+        tmp_path, rng, counted_hash):
+    """What the benchmark's byte counter reads: every chunk the read
+    checks passes through the wrapped entry points, the leaves whole."""
+    strings, _, leaves, _, checked = _whole_read(tmp_path, rng,
+                                                 counted_hash)
+    assert len(strings) == checked > leaves
+    assert sum(strings) > (1 << 20) + leaves     # a type byte a leaf
+
+
 # -------------------------------------------------------- engine restart
 
 def test_forkbase_durable_restart_bit_identical_heads(tmp_path, rng):
@@ -408,8 +570,9 @@ def test_ckpt_durable_restart(tmp_path, rng):
 def test_forkbase_durable_verified_restart_under_fphash(tmp_path, rng):
     """verify_get with fphash cids: the tiered store re-hashes every
     caller cid on put, the segment store again on demotion and on every
-    cold read — the per-chunk path of the single-string fphash entry
-    point."""
+    cold read — a batch of ``CHECK_BATCH_MIN`` chunks or more through the
+    batched fphash entry point, a smaller one through the single-string
+    one."""
     from repro_torch.core import FBlob, hashing
     root = str(tmp_path / "eng")
     data = rng.bytes(120_000)
@@ -428,6 +591,7 @@ def test_forkbase_durable_verified_restart_under_fphash(tmp_path, rng):
         cold = db2.store.cold.stats
         assert cold.verifies >= cold.gets > 0       # every cold read checked
         assert cold.verify_failures == 0
+        assert db2.store.stats.verify_batches + cold.verify_batches > 0
     finally:
         hashing.use_sha256()
 

@@ -409,13 +409,13 @@ def test_prometheus_text_renders_all_instrument_kinds():
 
 def test_store_stats_as_dict_and_merge():
     a = StoreStats(puts=2, gets=4, logical_bytes=100, physical_bytes=50,
-                   tier_hits=3, tier_misses=1)
+                   tier_hits=3, tier_misses=1, verify_batches=2)
     b = StoreStats(puts=1, gets=1, logical_bytes=20, physical_bytes=20,
-                   tier_hits=1, tier_misses=3)
+                   tier_hits=1, tier_misses=3, verify_batches=5)
     out = a.merge(b)
     assert out is a
     d = a.as_dict()
-    assert d["puts"] == 3 and d["gets"] == 5
+    assert d["puts"] == 3 and d["gets"] == 5 and d["verify_batches"] == 7
     assert d["logical_bytes"] == 120 and d["physical_bytes"] == 70
     assert d["dedup_ratio"] == pytest.approx(120 / 70)
     assert d["tier_hit_rate"] == pytest.approx(4 / 8)
@@ -618,6 +618,14 @@ def _check_sites(tmp_path):
     seg.flush()
     hot = TieredBackend(MemoryBackend(), verify=True)
     hot.put_many(raws)
+    # a batch the checks hash as one (``check_chunks``'s batched route)
+    from repro_torch.storage.backend import CHECK_BATCH_MIN
+    many = [rng.bytes(300) for _ in range(CHECK_BATCH_MIN)]
+    many_cids = [cid_of(r) for r in many]
+    hot_many = TieredBackend(MemoryBackend(), verify=True)
+    hot_many.put_many(many)
+    seg_many = SegmentBackend(str(tmp_path / "seg_many"), verify=True)
+    seg_many.put_many(many)
     meta = MemoryBackend()
     uid = make_fobject(meta, 7, b"k", b"v", ()).uid
     replay = {}
@@ -641,6 +649,10 @@ def _check_sites(tmp_path):
          if "seg" in replay else StoreStats(), reopen_seg),
         ("tiered.put", lambda: hot.stats, lambda: hot.put_many(raws, cids)),
         ("tiered.hit", lambda: hot.stats, lambda: hot.get_many(cids)),
+        ("tiered.hit_batch", lambda: hot_many.stats,
+         lambda: hot_many.get_many(many_cids)),
+        ("segment.get_batch", lambda: seg_many.stats,
+         lambda: seg_many.get_many(many_cids)),
         ("fobject.meta", lambda: meta.stats,
          lambda: load_fobject(meta, uid, verify=True)),
         ("unverified.get", lambda: MemoryBackend().stats, lambda: None),
@@ -649,7 +661,8 @@ def _check_sites(tmp_path):
 
 CHECK_SITES = ["memory.put", "memory.get", "memory.replay", "cache.hit",
                "segment.put", "segment.get", "segment.replay", "tiered.put",
-               "tiered.hit", "fobject.meta"]
+               "tiered.hit", "fobject.meta", "tiered.hit_batch",
+               "segment.get_batch"]
 
 
 @pytest.mark.parametrize("enabled", [True, False], ids=["obs_on", "obs_off"])
@@ -712,11 +725,12 @@ def test_a_cold_read_records_segment_get_spans_as_the_reference_counts(
         cold.verify_ns - ns0 > 0
     assert all(sp.attrs["bytes"] > 0 for sp in gets)
     # the span changes no count: the same sequence through the reference
+    # (which has neither the checks' time nor their batched hashes)
     ref, _ = _cold_read(rc, str(tmp_path / "ref"))
     for own, other in ((db.store.stats, ref.store.stats),
                        (cold, ref.store.cold.stats)):
         got = own.as_dict()
-        del got["verify_ns"]
+        del got["verify_ns"], got["verify_batches"]
         assert got == other.as_dict()
     assert db.store.stats.tier_misses > 0
     db.store.close()

@@ -751,6 +751,92 @@ def test_put_get_tamper_checks_are_typed(rng):
         be.get(cid)
 
 
+# ------------------------------------------------- batched chunk checks
+
+# each site of the durable stores that checks a batch, and the ``where``
+# of its TamperedChunk: the memory tier's hits, a read out of sealed
+# segments (their maps) and out of the active one (``pread``), and the
+# checks of caller cids on put
+BATCH_SITES = {"hot": "hot-tier hit", "sealed": "Get-Chunk",
+               "active": "Get-Chunk", "tiered.put": "Put-Chunk",
+               "segment.put": "Put-Chunk"}
+
+
+def _checked_batch(site, root, raws, ks):
+    """A verifying store and the call that checks ``raws`` as one batch,
+    with the chunks at ``ks`` altered where the site reads them: (store
+    whose stats count the checks, call)."""
+    cids = [cid_of(r) for r in raws]
+    seg = SegmentBackend(root, verify=True,
+                         segment_bytes=1 if site == "sealed" else 1 << 30)
+    store = (TieredBackend(seg, verify=True)
+             if site in ("hot", "tiered.put") else seg)
+    batch = list(raws)
+    for k in ks:
+        batch[k] = raws[k][:-1] + bytes([raws[k][-1] ^ 0x55])
+    if site.endswith(".put"):
+        return store, lambda: store.put_many(batch, cids)
+    store.put_many(raws)
+    for k in ks:
+        if site == "hot":
+            store._hot[cids[k]] = batch[k]
+        else:
+            _flip_leaf(store, cids[k])
+            assert seg._segments[seg._index[cids[k]]].sealed == (
+                site == "sealed")
+    return store, lambda: store.get_many(cids)
+
+
+@pytest.mark.parametrize("pos", ["first", "middle", "last", "first+last",
+                                 "none"])
+@pytest.mark.parametrize("n", [2, 7, 64])
+@pytest.mark.parametrize("site", list(BATCH_SITES))
+def test_a_batch_check_fails_and_counts_as_the_chunk_loop(tmp_path, rng,
+                                                          site, n, pos):
+    """A batch with an altered chunk raises TamperedChunk for the first
+    altered cid, with the site's ``where``; ``verifies`` grows by the
+    chunks up to and including it and ``verify_failures`` by one, as
+    checking chunk by chunk counts; a clean batch counts every chunk.  A
+    batch of at least ``CHECK_BATCH_MIN`` chunks is one batched check."""
+    from repro_torch.storage.backend import CHECK_BATCH_MIN
+    raws = chunks(rng, n=n, size=200)
+    ks = {"first": [0], "middle": [n // 2], "last": [n - 1],
+          "first+last": [0, n - 1], "none": []}[pos]
+    store, call = _checked_batch(site, str(tmp_path / "s"), raws, ks)
+    st = store.stats
+    v0, f0, b0 = st.verifies, st.verify_failures, st.verify_batches
+    if not ks:
+        got = call()
+        assert got == [cid_of(r) for r in raws] if site.endswith(".put") \
+            else got == raws
+        assert (st.verifies - v0, st.verify_failures - f0) == (n, 0)
+    else:
+        with pytest.raises(TamperedChunk) as err:
+            call()
+        assert err.value.cid == cid_of(raws[ks[0]])
+        assert err.value.where == BATCH_SITES[site]
+        assert (st.verifies - v0, st.verify_failures - f0) == (ks[0] + 1, 1)
+    assert st.verify_batches - b0 == (n >= CHECK_BATCH_MIN)
+
+
+@pytest.mark.parametrize("first", ["altered", "missing"])
+def test_a_segment_batch_fails_at_its_first_bad_or_missing_chunk(
+        tmp_path, rng, first):
+    """A read batch with an altered chunk and a missing one raises for
+    whichever comes first, as a read checking each chunk as it copies it
+    out would; checks count the chunks read before the failure."""
+    from repro_torch.storage import ChunkMissing
+    raws = chunks(rng, n=6, size=200)
+    store, _ = _checked_batch("sealed", str(tmp_path / "s"), raws, [3])
+    cids = [cid_of(r) for r in raws]
+    cids.insert(2 if first == "missing" else 5, bytes(32))
+    v0 = store.stats.verifies
+    with pytest.raises(TamperedChunk if first == "altered" else ChunkMissing):
+        store.get_many(cids)
+    assert store.stats.verifies - v0 == (4 if first == "altered" else 2)
+    assert store.stats.verify_failures == (first == "altered")
+
+
 # ------------------------------------------------------- batched pipeline
 
 @pytest.mark.parametrize("backend", ["memory"], indirect=True)
