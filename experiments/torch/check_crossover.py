@@ -5,7 +5,7 @@ batch sizes from 1 up, on one CUDA card.
     python3 experiments/torch/check_crossover.py [--reps 300] [--passes 2] \
         [--out <file.json>]
 
-The single route checks chunk by chunk (``cid_of``: one ``fphash_host``
+The single route checks chunk by chunk (``content_hash``: one ``fphash_host``
 launch from pinned memory and one wait a chunk); the batched route hashes
 the batch with one ``content_hash_many`` call (a join, three
 host-to-device copies, one ``fphash_many`` launch, the digests back).
@@ -49,10 +49,11 @@ def measure(backend, hashing, rng, reps: int) -> dict:
                 name = order[rep % 4]
                 backend.CHECK_BATCH_MIN = routes[name]
                 t = time.perf_counter()
-                bad = backend.check_chunks(st, raws, cids)
-                dt = time.perf_counter() - t
-                if bad is not None:
+                try:
+                    backend.check_chunks(st, raws, cids, "crossover")
+                except backend.TamperedChunk:
                     raise SystemExit(f"{name} route failed a clean batch")
+                dt = time.perf_counter() - t
                 if rep >= WARM:
                     times[name].append(dt)
             medians[f"{size}x{n}"] = {

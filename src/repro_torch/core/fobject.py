@@ -12,6 +12,7 @@ from dataclasses import dataclass
 
 from . import chunk as ck
 from ..errors import TamperedChunk
+from ..storage.backend import StoreStats, check_chunks
 
 # object type tags: chunkable types reuse chunk kinds; primitives below.
 TSTRING = 7
@@ -97,11 +98,7 @@ def load_fobject(store, uid: bytes, verify: bool = False) -> FObject:
     so a corrupted or substituted version can never deserialize."""
     raw = store.get(uid)
     if verify:
-        from ..storage.backend import StoreStats, check_chunk
-        from .chunk import cid_of
         # a store without stats still gets the check, counted nowhere
-        st = getattr(store, "stats", None) or StoreStats()
-        if not check_chunk(st, cid_of, raw, bytes(uid)):
-            from ..storage import TamperedChunk
-            raise TamperedChunk(bytes(uid), "Get-Meta")
+        check_chunks(getattr(store, "stats", None) or StoreStats(), [raw],
+                     [bytes(uid)], "Get-Meta")
     return FObject.deserialize(raw, uid)

@@ -27,8 +27,7 @@ from ..obs import trace as _trace
 
 __all__ = [
     "BackendBase", "CHECK_BATCH_MIN", "ChunkMissing", "StorageBackend",
-    "StoreStats", "TamperedChunk", "check_chunk", "check_chunks",
-    "chunk_cid_of", "delete_via", "group_by",
+    "StoreStats", "TamperedChunk", "check_chunks", "delete_via", "group_by",
     "overlay_get_many", "overlay_has_many", "put_via", "resolve_cids",
 ]
 
@@ -129,90 +128,63 @@ class StorageBackend(Protocol):
         ...
 
 
-def check_chunk(st: StoreStats, cid_of, raw: bytes, cid: bytes) -> bool:
-    """One integrity check: does ``raw`` hash to ``cid``?  Counted in
-    ``st.verifies`` (and ``verify_failures``); while obs is enabled its
-    time goes into ``st.verify_ns``."""
-    st.verifies += 1
-    if _OBS.enabled:
-        t = _now_ns()
-        ok = cid_of(raw) == cid
-        st.verify_ns += _now_ns() - t
-    else:
-        ok = cid_of(raw) == cid
-    if not ok:
-        st.verify_failures += 1
-    return ok
-
-
-# cid_of lives in the core package, which imports storage back through the
-# chunkstore facade: a module-scope import would cycle, so the binding is
-# resolved once on first use instead of once per call
-_cid_of = None
-
-
-def chunk_cid_of():
-    """``core.chunk.cid_of``, the single-chunk hash the checks use."""
-    global _cid_of
-    if _cid_of is None:
-        from ..core.chunk import cid_of
-        _cid_of = cid_of
-    return _cid_of
+def _hashing():
+    """``core.hashing``, imported on first use: the core package imports
+    storage back through the chunkstore facade, so a module-scope import
+    would cycle."""
+    from ..core import hashing
+    return hashing
 
 
 #: The fewest chunks ``check_chunks`` hashes as one batch
 #: (``content_hash_many``: a join, three host-to-device copies, one
 #: ``fphash_many`` launch and the digests back, on the card); a smaller
-#: batch is checked chunk by chunk (``cid_of``: one ``fphash_host`` launch
-#: from pinned memory and one wait a chunk).  Measured on one H100 80GB
-#: HBM3 at 700 W (``experiments/torch/check_crossover.py``, three passes on
-#: two machines): a batched call costs ~200-450 µs up to 64 chunks, the
-#: single route ~21-44 µs a chunk; from 24 chunks of 64 bytes, 2 KB or
-#: 4,097 bytes up the batched route was faster in every pass, at 16 it won
-#: some passes and lost others.
+#: batch is checked chunk by chunk (``content_hash``: one ``fphash_host``
+#: launch from pinned memory and one wait a chunk).  Measured on one H100
+#: 80GB HBM3 at 700 W (``experiments/torch/check_crossover.py``, three
+#: passes on two machines): a batched call costs ~200-450 µs up to 64
+#: chunks, the single route ~21-44 µs a chunk; from 24 chunks of 64
+#: bytes, 2 KB or 4,097 bytes up the batched route was faster in every
+#: pass, at 16 it won some passes and lost others.
 CHECK_BATCH_MIN = 24
 
 
 def check_chunks(st: StoreStats, raws: Sequence[bytes],
-                 cids: Sequence[bytes]) -> int | None:
-    """Check a batch: does each ``raws[i]`` hash to ``cids[i]``?  Returns
-    the index of the first chunk that does not, or None.  Counts as the
-    chunk-by-chunk loop of ``check_chunk`` would: ``st.verifies`` grows by
-    the chunks up to and including the first failure (by all of them
-    when none fails), ``verify_failures`` by one on a failure.  A batch of
-    at least ``CHECK_BATCH_MIN`` chunks is hashed by one
-    ``content_hash_many`` call (counted in ``verify_batches``, its time in
-    ``verify_ns`` while obs is enabled)."""
-    if len(raws) < CHECK_BATCH_MIN:
-        cid_of = chunk_cid_of()
-        for i, (raw, cid) in enumerate(zip(raws, cids)):
-            if not check_chunk(st, cid_of, raw, cid):
-                return i
-        return None
-    from ..core.hashing import content_hash_many   # lazily: see chunk_cid_of
+                 cids: Sequence[bytes], where: str) -> None:
+    """The one integrity check of every verifying store: raise
+    ``TamperedChunk(cids[i], where)`` for the first ``i`` whose
+    ``raws[i]`` does not hash to ``cids[i]``.  Counts as checking chunk by
+    chunk would: ``st.verifies`` grows by the chunks up to and including
+    the first failure (by all of them when none fails),
+    ``verify_failures`` by one on a failure.  A batch below
+    ``CHECK_BATCH_MIN`` is hashed chunk by chunk (``content_hash``); a
+    larger one by one ``content_hash_many`` call, counted in
+    ``verify_batches``.  While obs is enabled the checks' time goes into
+    ``verify_ns``."""
+    hashing = _hashing()
     timed = _OBS.enabled
     t = _now_ns() if timed else 0
-    got = content_hash_many(raws)
+    if len(raws) < CHECK_BATCH_MIN:
+        got = map(hashing.content_hash, raws)
+    else:
+        got = hashing.content_hash_many(raws)
+        st.verify_batches += 1
     bad = next((i for i, (d, cid) in enumerate(zip(got, cids)) if d != cid),
                None)
     if timed:
         st.verify_ns += _now_ns() - t
-    st.verify_batches += 1
     if bad is None:
         st.verifies += len(raws)
-        return None
+        return
     st.verifies += bad + 1
     st.verify_failures += 1
-    return bad
+    raise TamperedChunk(cids[bad], where)
 
 
 def resolve_cids(raws: Sequence[bytes],
                  cids: Sequence[bytes | None] | None) -> list[bytes]:
     """Fill in missing cids with one vectorized hash batch."""
-    # Imported lazily: core imports storage (chunkstore shim), so a
-    # module-scope import here would cycle through the core package.
-    from ..core.hashing import content_hash_many
-
+    content_hash_many = _hashing().content_hash_many
     if cids is None:
         return content_hash_many(raws)
     out = list(cids)
@@ -240,27 +212,15 @@ def group_by(owner_of, cids: Sequence[bytes],
     return groups
 
 
-def overlay_get_many(local: dict, cids: Sequence[bytes], fetch,
-                     on_hit=None, on_fetch=None) -> list[bytes]:
+def overlay_get_many(local: dict, cids: Sequence[bytes],
+                     fetch) -> list[bytes]:
     """Serve a read batch from a local dict overlay, forwarding only the
-    misses to ``fetch`` in one call (shared by WriteBuffer pending reads
-    and the LRU cache)."""
-    out: list[bytes | None] = []
-    miss_idx: list[int] = []
-    miss_cids: list[bytes] = []
-    for i, cid in enumerate(cids):
-        raw = local.get(cid)
-        out.append(raw)
-        if raw is None:
-            miss_idx.append(i)
-            miss_cids.append(cid)
-        elif on_hit is not None:
-            on_hit(cid)
-    if miss_cids:
-        for i, cid, raw in zip(miss_idx, miss_cids, fetch(miss_cids)):
+    misses to ``fetch`` in one call (WriteBuffer's pending reads)."""
+    out = [local.get(cid) for cid in cids]
+    miss = [i for i, raw in enumerate(out) if raw is None]
+    if miss:
+        for i, raw in zip(miss, fetch([cids[i] for i in miss])):
             out[i] = raw
-            if on_fetch is not None:
-                on_fetch(cid, raw)
     return out  # type: ignore[return-value]
 
 

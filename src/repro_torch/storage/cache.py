@@ -5,8 +5,8 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
-from .backend import (BackendBase, check_chunk, delete_via,
-                      overlay_get_many, overlay_has_many, put_via)
+from .backend import (BackendBase, check_chunks, delete_via,
+                      overlay_has_many, put_via)
 
 
 class LRUCacheBackend(BackendBase):
@@ -55,18 +55,23 @@ class LRUCacheBackend(BackendBase):
         st = self.stats
         st.get_batches += 1
         st.gets += len(cids)
-
-        def on_hit(cid):
-            self._cache.move_to_end(cid)
-            st.cache_hits += 1
-            if self.verify:
-                from ..core.chunk import cid_of
-                if not check_chunk(st, cid_of, self._cache[cid], cid):
-                    from .backend import TamperedChunk
-                    raise TamperedChunk(cid, "cache hit")
-
-        return overlay_get_many(self._cache, cids, self.inner.get_many,
-                                on_hit=on_hit, on_fetch=self._admit)
+        cache = self._cache
+        out = [cache.get(cid) for cid in cids]
+        hits = [i for i, raw in enumerate(out) if raw is not None]
+        for i in hits:
+            cache.move_to_end(cids[i])
+        st.cache_hits += len(hits)
+        # the hits are checked as one batch before any miss is fetched
+        if self.verify and hits:
+            check_chunks(st, [out[i] for i in hits], [cids[i] for i in hits],
+                         "cache hit")
+        miss = [i for i, raw in enumerate(out) if raw is None]
+        if miss:
+            for i, raw in zip(miss,
+                              self.inner.get_many([cids[i] for i in miss])):
+                out[i] = raw
+                self._admit(cids[i], raw)
+        return out
 
     def has_many(self, cids) -> list[bool]:
         return overlay_has_many(self._cache, cids, self.inner.has_many)

@@ -48,9 +48,7 @@ import struct
 from ...errors import ConfigError
 from ...obs import emit as obs_emit
 from ...obs import trace as obs_trace
-from ..backend import (BackendBase, ChunkMissing, TamperedChunk,
-                       check_chunk, check_chunks, chunk_cid_of,
-                       resolve_cids)
+from ..backend import BackendBase, ChunkMissing, check_chunks, resolve_cids
 from .fsutil import fsync_dir, replace_durably
 
 _CID = 32
@@ -222,7 +220,6 @@ class SegmentBackend(BackendBase):
         entries: list[tuple[int, int, bytes]] = []
         good = 0
         verify = self.verify
-        cid_of = chunk_cid_of() if verify else None
         with open(path, "rb") as f:
             while True:
                 off = f.tell()
@@ -245,8 +242,8 @@ class SegmentBackend(BackendBase):
                 if off + _HEAD + ln > size:
                     break                    # torn tail write
                 if verify:
-                    if not check_chunk(self.stats, cid_of, f.read(ln), cid):
-                        raise TamperedChunk(cid, "segment replay")
+                    check_chunks(self.stats, [f.read(ln)], [cid],
+                                 "segment replay")
                 else:
                     f.seek(ln, 1)
                 entries.append((off, ln, cid))
@@ -286,10 +283,8 @@ class SegmentBackend(BackendBase):
         out = resolve_cids(raws, cids)
         st = self.stats
         if self.verify and provided:
-            bad = check_chunks(st, [raws[i] for i in provided],
-                               [out[i] for i in provided])
-            if bad is not None:
-                raise TamperedChunk(out[provided[bad]], "Put-Chunk")
+            check_chunks(st, [raws[i] for i in provided],
+                         [out[i] for i in provided], "Put-Chunk")
         st.put_batches += 1
         for raw, cid in zip(raws, out):
             st.puts += 1
@@ -356,9 +351,7 @@ class SegmentBackend(BackendBase):
             # the chunks read are checked as one batch, and a bad one is
             # reported before a missing chunk that follows it
             if self.verify and out:
-                bad = check_chunks(st, out, cids[:len(out)])
-                if bad is not None:
-                    raise TamperedChunk(cids[bad], "Get-Chunk")
+                check_chunks(st, out, cids[:len(out)], "Get-Chunk")
             if missing is not None:
                 raise ChunkMissing(missing)
             if sp is not None:

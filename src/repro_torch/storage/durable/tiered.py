@@ -30,9 +30,8 @@ from collections import OrderedDict
 
 from ...obs import emit as obs_emit
 from ...obs import trace as obs_trace
-from ..backend import (BackendBase, StorageBackend, TamperedChunk,
-                       check_chunks, delete_via, overlay_has_many,
-                       resolve_cids)
+from ..backend import (BackendBase, StorageBackend, check_chunks,
+                       delete_via, overlay_has_many, resolve_cids)
 
 # StoreStats fields the cold tier recovers by log/footer replay on open;
 # a freshly constructed TieredBackend adopts them as its own baseline so
@@ -66,10 +65,8 @@ class TieredBackend(BackendBase):
         out = resolve_cids(raws, cids)
         st = self.stats
         if self.verify and provided:
-            bad = check_chunks(st, [raws[i] for i in provided],
-                               [out[i] for i in provided])
-            if bad is not None:
-                raise TamperedChunk(out[provided[bad]], "Put-Chunk")
+            check_chunks(st, [raws[i] for i in provided],
+                         [out[i] for i in provided], "Put-Chunk")
         st.put_batches += 1
         # one batched existence probe against the cold tier for dedup
         unknown = [c for c in dict.fromkeys(out) if c not in self._hot]
@@ -150,10 +147,8 @@ class TieredBackend(BackendBase):
         st.tier_hits += len(hits)
         # the hits are checked as one batch before any miss is fetched
         if self.verify and hits:
-            bad = check_chunks(st, [out[i] for i in hits],
-                               [cids[i] for i in hits])
-            if bad is not None:
-                raise TamperedChunk(cids[hits[bad]], "hot-tier hit")
+            check_chunks(st, [out[i] for i in hits], [cids[i] for i in hits],
+                         "hot-tier hit")
         miss = [i for i, raw in enumerate(out) if raw is None]
         if miss:
             st.tier_misses += len(miss)

@@ -14,26 +14,11 @@ import os
 import struct
 
 from ..obs import emit as obs_emit
-from .backend import (BackendBase, ChunkMissing, TamperedChunk,
-                      check_chunk, resolve_cids)
+from .backend import BackendBase, ChunkMissing, check_chunks, resolve_cids
 from .durable.fsutil import replace_durably
 
 _LEN = struct.Struct("<I")
 _TOMBSTONE = 0xFFFFFFFF
-
-# cid_of lives in the core package, which imports storage back through
-# the chunkstore facade — a module-scope import would cycle, so the
-# binding is resolved once on first use and cached here instead of being
-# re-imported on every put_many/get_many/_replay call
-_cid_of = None
-
-
-def _chunk_cid_of():
-    global _cid_of
-    if _cid_of is None:
-        from ..core.chunk import cid_of
-        _cid_of = cid_of
-    return _cid_of
 
 
 class MemoryBackend(BackendBase):
@@ -66,10 +51,8 @@ class MemoryBackend(BackendBase):
         if self.verify and provided:
             # only caller-supplied cids can mismatch; self-computed ones
             # would just re-hash the same bytes
-            cid_of = _chunk_cid_of()
-            for i in provided:
-                if not check_chunk(self.stats, cid_of, raws[i], out[i]):
-                    raise TamperedChunk(out[i], "Put-Chunk")
+            check_chunks(self.stats, [raws[i] for i in provided],
+                         [out[i] for i in provided], "Put-Chunk")
         st = self.stats
         st.put_batches += 1
         for raw, cid in zip(raws, out):
@@ -88,16 +71,21 @@ class MemoryBackend(BackendBase):
     def _get_many_impl(self, cids) -> list[bytes]:
         st = self.stats
         st.get_batches += 1
-        cid_of = _chunk_cid_of() if self.verify else None
         out = []
+        missing = None
         for cid in cids:
             st.gets += 1
             raw = self._data.get(cid)
             if raw is None:
-                raise ChunkMissing(cid)
-            if self.verify and not check_chunk(st, cid_of, raw, cid):
-                raise TamperedChunk(cid, "Get-Chunk")
+                missing = cid
+                break
             out.append(raw)
+        # the chunks read are checked as one batch, and a bad one is
+        # reported before a missing chunk that follows it
+        if self.verify:
+            check_chunks(st, out, cids[:len(out)], "Get-Chunk")
+        if missing is not None:
+            raise ChunkMissing(missing)
         return out
 
     def has_many(self, cids) -> list[bool]:
@@ -138,7 +126,6 @@ class MemoryBackend(BackendBase):
         in ``deletes`` / ``reclaimed_bytes`` — without this, dedup and
         space ratios are wrong after every reopen (puts/logical reset
         to zero, deletes invisible)."""
-        cid_of = _chunk_cid_of()
         from ..core.hashing import CID_LEN
         st = self.stats
         good = 0                       # offset after the last whole record
@@ -160,8 +147,8 @@ class MemoryBackend(BackendBase):
                 raw = f.read(ln)
                 if len(raw) < ln:
                     break  # torn tail write: recover prefix
-                if self.verify and not check_chunk(st, cid_of, raw, cid):
-                    raise TamperedChunk(cid, "log replay")
+                if self.verify:
+                    check_chunks(st, [raw], [cid], "log replay")
                 st.puts += 1
                 st.logical_bytes += ln
                 if cid not in self._data:

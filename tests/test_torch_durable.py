@@ -19,9 +19,9 @@ from repro_torch.core import Cluster, FBlob, ForkBase, FMap
 from repro_torch.core.branch import BranchTable
 from repro_torch.core.chunk import cid_of, encode_chunk
 from repro_torch.kernels import ops
-from repro_torch.storage import (MemoryBackend, SegmentBackend,
-                                 TamperedChunk, TieredBackend, WriteBuffer,
-                                 open_durable)
+from repro_torch.storage import (LRUCacheBackend, MemoryBackend,
+                                 SegmentBackend, TamperedChunk,
+                                 TieredBackend, WriteBuffer, open_durable)
 from repro_torch.storage.backend import CHECK_BATCH_MIN
 from repro_torch.storage.durable.segment import _LEN, _TOMBSTONE
 
@@ -368,6 +368,23 @@ def test_hot_hits_are_checked_before_any_miss_is_fetched(tmp_path, rng,
         t.get_many(cold[:misses] + hot)     # the misses first in the batch
     assert err.value.cid == hot[3] and err.value.where == "hot-tier hit"
     assert (t.stats.tier_misses, t.cold.stats.get_batches) == (m0, g0)
+
+
+@pytest.mark.parametrize("misses", [1, 5])
+def test_cache_hits_are_checked_before_any_miss_is_fetched(rng, misses):
+    """The LRU cache's hits, as the memory tier's: one batch checked
+    before the inner store sees any miss."""
+    inner = MemoryBackend()
+    cold = inner.put_many(chunks(rng, n=8))
+    lru = LRUCacheBackend(inner, verify=True)
+    hot_raws = chunks(rng, n=8)
+    hot = lru.put_many(hot_raws)
+    lru._cache[hot[3]] = _altered(hot_raws[3])
+    g0 = inner.stats.get_batches
+    with pytest.raises(TamperedChunk) as err:
+        lru.get_many(cold[:misses] + hot)   # the misses first in the batch
+    assert err.value.cid == hot[3] and err.value.where == "cache hit"
+    assert inner.stats.get_batches == g0
 
 
 @pytest.mark.parametrize("site", ["hot", "cold", "put"])

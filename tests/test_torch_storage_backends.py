@@ -18,6 +18,7 @@ import pytest
 
 from repro_torch.core import Cluster, ForkBase, FBlob, FMap
 from repro_torch.core.chunk import cid_of, encode_chunk
+from repro_torch.core.fobject import TSTRING, FObject
 from repro_torch.errors import ConfigError
 from repro_torch.kernels import ops
 from repro_torch.storage import (ChunkMissing, LRUCacheBackend,
@@ -753,27 +754,70 @@ def test_put_get_tamper_checks_are_typed(rng):
 
 # ------------------------------------------------- batched chunk checks
 
-# each site of the durable stores that checks a batch, and the ``where``
-# of its TamperedChunk: the memory tier's hits, a read out of sealed
-# segments (their maps) and out of the active one (``pread``), and the
-# checks of caller cids on put
+# each site of the verifying stores that checks a batch, and the
+# ``where`` of its TamperedChunk: the memory tier's hits, a read out of
+# sealed segments (their maps) and out of the active one (``pread``), the
+# checks of caller cids on put, the memory store's reads, the LRU
+# cache's hits, and the meta chunks of a verifying engine's gets (each
+# get checks its own, as a batch of one)
 BATCH_SITES = {"hot": "hot-tier hit", "sealed": "Get-Chunk",
                "active": "Get-Chunk", "tiered.put": "Put-Chunk",
-               "segment.put": "Put-Chunk"}
+               "segment.put": "Put-Chunk", "memory.put": "Put-Chunk",
+               "memory.get": "Get-Chunk", "lru": "cache hit",
+               "meta": "Get-Meta"}
+
+
+def _site_chunks(site, rng, n):
+    """``n`` chunks of 200 bytes for ``site`` to check: meta chunks of
+    string versions for the engine's gets, leaves elsewhere."""
+    if site != "meta":
+        return chunks(rng, n=n, size=200)
+    return [FObject(TSTRING, b"k%d" % i, rng.bytes(200), 0, ()).serialize()
+            for i in range(n)]
+
+
+def _altered_copies(raws, ks):
+    batch = list(raws)
+    for k in ks:
+        batch[k] = raws[k][:-1] + bytes([raws[k][-1] ^ 0x55])
+    return batch
+
+
+def _checked_memory_batch(site, raws, ks):
+    """``_checked_batch`` for the sites that bottom out in the memory
+    store: the store itself, the LRU cache over it, and an engine over an
+    unverified one that checks the meta chunk of each get."""
+    cids = [cid_of(r) for r in raws]
+    batch = _altered_copies(raws, ks)
+    if site == "memory.put":
+        store = MemoryBackend(verify=True)
+        return store, lambda: store.put_many(batch, cids)
+    if site == "lru":
+        store = LRUCacheBackend(MemoryBackend(), verify=True)
+        store.put_many(raws)
+        store._cache.update((cids[k], batch[k]) for k in ks)
+        return store, lambda: store.get_many(cids)
+    store = MemoryBackend(verify=site == "memory.get")
+    store.put_many(raws)
+    store._data.update((cids[k], batch[k]) for k in ks)
+    if site == "memory.get":
+        return store, lambda: store.get_many(cids)
+    db = ForkBase(store, verify_get=True)
+    return store, lambda: [db.get(b"", uid=c).obj.serialize() for c in cids]
 
 
 def _checked_batch(site, root, raws, ks):
     """A verifying store and the call that checks ``raws`` as one batch,
     with the chunks at ``ks`` altered where the site reads them: (store
     whose stats count the checks, call)."""
+    if site in ("memory.put", "memory.get", "lru", "meta"):
+        return _checked_memory_batch(site, raws, ks)
     cids = [cid_of(r) for r in raws]
     seg = SegmentBackend(root, verify=True,
                          segment_bytes=1 if site == "sealed" else 1 << 30)
     store = (TieredBackend(seg, verify=True)
              if site in ("hot", "tiered.put") else seg)
-    batch = list(raws)
-    for k in ks:
-        batch[k] = raws[k][:-1] + bytes([raws[k][-1] ^ 0x55])
+    batch = _altered_copies(raws, ks)
     if site.endswith(".put"):
         return store, lambda: store.put_many(batch, cids)
     store.put_many(raws)
@@ -797,9 +841,10 @@ def test_a_batch_check_fails_and_counts_as_the_chunk_loop(tmp_path, rng,
     altered cid, with the site's ``where``; ``verifies`` grows by the
     chunks up to and including it and ``verify_failures`` by one, as
     checking chunk by chunk counts; a clean batch counts every chunk.  A
-    batch of at least ``CHECK_BATCH_MIN`` chunks is one batched check."""
+    batch of at least ``CHECK_BATCH_MIN`` chunks is one batched check (the
+    meta chunks are checked one a get)."""
     from repro_torch.storage.backend import CHECK_BATCH_MIN
-    raws = chunks(rng, n=n, size=200)
+    raws = _site_chunks(site, rng, n)
     ks = {"first": [0], "middle": [n // 2], "last": [n - 1],
           "first+last": [0, n - 1], "none": []}[pos]
     store, call = _checked_batch(site, str(tmp_path / "s"), raws, ks)
@@ -816,18 +861,23 @@ def test_a_batch_check_fails_and_counts_as_the_chunk_loop(tmp_path, rng,
         assert err.value.cid == cid_of(raws[ks[0]])
         assert err.value.where == BATCH_SITES[site]
         assert (st.verifies - v0, st.verify_failures - f0) == (ks[0] + 1, 1)
-    assert st.verify_batches - b0 == (n >= CHECK_BATCH_MIN)
+    assert st.verify_batches - b0 == (n >= CHECK_BATCH_MIN
+                                      and site != "meta")
 
 
-@pytest.mark.parametrize("first", ["altered", "missing"])
+@pytest.mark.parametrize(
+    "site,first", [("sealed", "altered"), ("sealed", "missing"),
+                   ("memory.get", "altered"), ("memory.get", "missing")],
+    ids=["altered", "missing", "memory-altered", "memory-missing"])
 def test_a_segment_batch_fails_at_its_first_bad_or_missing_chunk(
-        tmp_path, rng, first):
+        tmp_path, rng, site, first):
     """A read batch with an altered chunk and a missing one raises for
     whichever comes first, as a read checking each chunk as it copies it
-    out would; checks count the chunks read before the failure."""
+    out would; checks count the chunks read before the failure.  The
+    memory store reads a batch as the segment store does."""
     from repro_torch.storage import ChunkMissing
     raws = chunks(rng, n=6, size=200)
-    store, _ = _checked_batch("sealed", str(tmp_path / "s"), raws, [3])
+    store, _ = _checked_batch(site, str(tmp_path / "s"), raws, [3])
     cids = [cid_of(r) for r in raws]
     cids.insert(2 if first == "missing" else 5, bytes(32))
     v0 = store.stats.verifies
